@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Accuracy-parity harness: TPU pipeline vs C++ baseline vs NumPy oracle.
+"""Accuracy-parity harness: JAX pipeline vs C++ baseline vs NumPy oracle.
 
 BASELINE.json demands EPE parity "with the reference implementation";
 with no Sintel/KITTI data shipped in this environment, parity is scored
@@ -160,11 +160,9 @@ def main():
     # Pass criterion: ACCURACY parity (|EPE difference| vs the C++
     # reference semantics).  The raw flow-field delta is reported but
     # not gated: the IC-LK loop is a chaotic fixed-point iteration and
-    # hardware fp differences (TPU fused multiplies, sqrt rounding)
-    # flip the outlier-policing decision for near-threshold patches,
-    # perturbing a subset of patch flows without hurting accuracy —
-    # all TPU execution paths agree with each other to ~3e-5 while
-    # differing from CPU identically.
+    # hardware fp differences (fused multiplies, sqrt rounding) flip
+    # the outlier-policing decision for near-threshold patches,
+    # perturbing a subset of patch flows without hurting accuracy.
     worst_epe = max(abs(r["epe_tpu"] - r["epe_cpp"]) for r in results)
     worst_delta = max(r["delta_tpu_vs_cpp"] for r in results)
     summary = {"summary": "parity", "sizes": args.sizes,

@@ -1,10 +1,9 @@
 #!/usr/bin/env python
 """Benchmark suite covering the five BASELINE.json configurations.
 
-Each config prints one JSON line.  On a single-chip machine the
-multi-device configs run over a virtual CPU mesh to validate structure
-(their numbers are not TPU numbers and are labeled accordingly);
-on a pod slice they run over the real mesh.
+Each config prints one JSON line; the card's name and power limit go to
+stderr.  Runs only on the card (fails without a GPU); the multi-device
+configs need a host with several cards and are skipped on one.
 
   #1 single pair, 3-level pyramid, 8x8 patches, no refinement
   #2 full DIS preset with variational refinement, single chip
@@ -24,12 +23,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "benchmarks"))
 
-# One timing methodology for all artifacts (benchmarks/timing.py):
-# chained device-side repetitions, the same harness bench.py and
-# tpu_experiments.py use — round-2 VERDICT item #6 (this file used to
-# time with host perf_counter, giving the same workload a different
-# number than bench.py).
-from timing import chained_seconds as timed  # noqa: E402
+# One timing methodology for all artifacts (benchmarks/timing.py).
+from timing import card, require_gpu, time_call  # noqa: E402
+
+
+def timed(fn, *args) -> float:
+    """Median steady-state seconds per call."""
+    return time_call(fn, *args)["median_s"]
 
 
 def synth(h, w, seed=0):
@@ -51,17 +51,21 @@ def main():
     import jax
     import jax.numpy as jnp
 
+    from dis_tpu.backend import setup_compile_cache
     from dis_tpu.config import DISConfig
     from dis_tpu.models.dis import dis_flow_padded
-    from dis_tpu.parallel import (make_mesh, batched_flow_fn, tiled_flow_fn,
-                                  sequence_flow_fn)
+    from dis_tpu.parallel import make_mesh, batched_flow_fn, tiled_flow_fn
 
-    platform = jax.default_backend()
-    ndev = jax.device_count()
+    devs = require_gpu()
+    setup_compile_cache()
+    print(card(), file=sys.stderr)
+    device = {"platform": devs[0].platform, "kind": devs[0].device_kind,
+              "count": len(devs)}
+    ndev = len(devs)
     records = []
 
     def emit(**kw):
-        rec = {"platform": platform, "timing": "chained-device", **kw}
+        rec = {"device": device, "timing": "host-clock-median", **kw}
         records.append(rec)
         print(json.dumps(rec), flush=True)
 
@@ -76,8 +80,8 @@ def main():
 
     # 2: full preset with variational refinement (paper-form: one
     # warp/linearization per level, lagged fixed-point + SOR, as in the
-    # DIS authors' OpenCV VariationalRefinement; quality A/B in
-    # PERF_NOTES.md shows this beats re-warping outers)
+    # DIS authors' OpenCV VariationalRefinement, which measured better
+    # EPE than re-warping outers)
     cfg2 = DISConfig(iterations=16, coarsest_scale=3, patch_overlap=0.3,
                      mode="fixed", refinement_iters=1,
                      refine_per_level=True, refinement_inner_sweeps=5,
@@ -101,10 +105,9 @@ def main():
     emit(config=3, desc=f"KITTI batch x{nb} pairs", pairs_per_sec=round(nb / dt, 3),
          devices=nb)
 
-    # 3b: single-chip vmap batching (the coarse scales run small grids
-    # at ~2.6x worse per-patch efficiency — batching pairs widens them,
-    # so per-chip throughput exceeds 1/latency; ROOFLINE.md per-scale
-    # split).  Reported at the best batch size.
+    # 3b: single-card vmap batching (the coarse scales run small grids;
+    # batching pairs widens them, so per-card throughput can exceed
+    # 1/latency).  Reported at the best batch size.
     if ndev == 1:
         best_bsz, best_pps = 1, nb / dt
         for bsz in (2, 4):
@@ -116,7 +119,7 @@ def main():
             dtb = timed(gb, a2, b2)
             if bsz / dtb > best_pps:
                 best_bsz, best_pps = bsz, bsz / dtb
-        emit(config="3b", desc=f"KITTI single-chip vmap batch x{best_bsz}",
+        emit(config="3b", desc=f"KITTI single-card vmap batch x{best_bsz}",
              pairs_per_sec=round(best_pps, 3), devices=1)
 
     # 4: 1080p frame-tiled across devices (latency)

@@ -1,4 +1,4 @@
-"""dis_tpu — a TPU-native dense optical flow engine (DIS).
+"""dis_tpu — a dense optical flow engine (DIS) in JAX.
 
 A from-scratch JAX/XLA/Pallas implementation of Fast Optical Flow using
 Dense Inverse Search (Kroeger et al., ECCV 2016), with the capabilities

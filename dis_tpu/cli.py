@@ -8,7 +8,7 @@ The reference accepts 0, 3 or 10 positional args:
 and loops over consecutive pairs ``<folder>/frame_%04d.png``, writing
 colorized flow to ``OF_<folder>/``.  This driver reproduces that
 surface (minus the Win32 imshow windows) and adds named flags for the
-TPU-build knobs (mode, refinement, .flo output, EPE scoring against
+build's own knobs (mode, refinement, .flo output, EPE scoring against
 ground truth, device batching).
 """
 
@@ -51,7 +51,7 @@ USAGE = (
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="dis-tpu",
-        description="TPU-native DIS optical flow (reference-compatible CLI)",
+        description="DIS optical flow in JAX (reference-compatible CLI)",
     )
     # The reference's ten positional parameters, collected as one list so
     # the 0/3/10 arity rule (main.cpp:73-101) can be enforced: any other
@@ -60,7 +60,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="0, 3 or 10 positional parameters: folder "
                         "start end [max_iter patch_size coarsest finest "
                         "overlap norm draw]")
-    # TPU-build flags
+    # flags of this build
     p.add_argument("--preset", choices=["ultrafast", "fast", "medium",
                                         "full", "compat"], default=None,
                    help="paper-style preset; overrides the positional params")
@@ -77,7 +77,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "with the default smoothness alpha the field "
                         "under-smooths: unless --refine-alpha is given, "
                         "'intensity' auto-rebalances alpha to 40.0 (the "
-                        "chip-swept optimum the quality presets use). "
+                        "swept optimum the quality presets use). "
                         "No-op without --refine (a warning is printed).")
     p.add_argument("--refine-alpha", type=float, default=None,
                    metavar="ALPHA",
@@ -93,14 +93,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-early-exit", action="store_true")
     p.add_argument("--batch", type=int, default=1, metavar="N",
                    help="process N consecutive frame pairs per device "
-                        "dispatch (vmapped pipeline).  Amortizes HOST "
-                        "dispatch overhead (valuable on high-RTT "
-                        "attachments); device-side the batched glue "
-                        "costs ~1.8x per pair at Sintel size "
-                        "(PERF_NOTES round 3), so prefer serial "
-                        "dispatch when the host link is fast.  "
-                        "parallel.batch is the multi-chip version of "
-                        "the same axis.")
+                        "dispatch (vmapped pipeline; the search kernel "
+                        "folds the pairs into one launch).  Amortizes "
+                        "host dispatch overhead.  parallel.batch is the "
+                        "multi-device version of the same axis.")
     p.add_argument("--profile-dir", default=None,
                    help="write a jax.profiler trace to this directory")
     p.add_argument("--json-log", default=None,
@@ -128,9 +124,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     import jax
     import jax.numpy as jnp
 
+    from .backend import setup_compile_cache
     from .config import DISConfig
     from .models.dis import dis_flow
     from .utils import color, flo, io as uio, metrics
+
+    setup_compile_cache()
 
     if args.preset:
         from .config import PRESETS
@@ -163,8 +162,8 @@ def main(argv: Optional[List[str]] = None) -> int:
               and args.refine_alpha is None
               and cfg.refinement_alpha == 10.0):
             # Intensity planes carry ~4x the Q1 dynamic range; the
-            # round-4 chip sweep (tools/quality_sweep.py) found
-            # alpha=40 optimal — the presets pair them the same way.
+            # sweep in tools/quality_sweep.py found alpha=40 optimal —
+            # the presets pair them the same way.
             cfg = dataclasses.replace(cfg, refinement_alpha=40.0)
             print("note: --refine-planes intensity rebalances "
                   "refinement alpha 10 -> 40 (pass --refine-alpha to "

@@ -1,9 +1,9 @@
-"""Configuration for the TPU-native DIS optical flow engine.
+"""Configuration for the DIS optical flow engine.
 
 The ten "compat core" parameters mirror the reference CLI
 (``/root/reference/src/main.cpp:63-101``); derived quantities follow
 ``/root/reference/src/optical_flow.cpp:33-59``.  New knobs (``mode``,
-``refinement``, sampler/kernel selection) are TPU-build additions.
+``refinement``, sampler/kernel selection) are additions of this build.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ class DISConfig:
     - ``patch_normalization``: mean-subtract the warped query patch
       (ref ``patch.cpp:264-266``).
 
-    TPU-build additions:
+    Additions of this build:
 
     - ``mode``: ``"compat"`` reproduces the reference's quirk ledger
       (SURVEY.md Q1-Q10) for EPE-parity scoring; ``"fixed"`` applies the
@@ -39,10 +39,11 @@ class DISConfig:
     - ``refinement_iters``: variational refinement fixed-point iterations
       (0 disables; the reference skips this paper step entirely,
       ``README.md:11``).
-    - ``early_exit``: allow the batched solver to stop once every patch
+    - ``early_exit``: allow the XLA search to stop once every patch
       has converged (``lax.while_loop``); only meaningful in fixed mode
       or when policing freezes all patches. Compat output is unaffected
-      because frozen patches are masked either way.
+      because frozen patches are masked either way.  The GPU search
+      kernel always stops per block of patches (output-identical).
     - ``conv_eps``: fixed-mode convergence threshold on ``|delta_u|``.
     """
 
@@ -54,8 +55,12 @@ class DISConfig:
     patch_normalization: bool = True
 
     mode: str = "compat"  # "compat" | "fixed"
-    sampler: str = "region"  # "region" (fast, TPU-native) | "global" (reference-shaped)
-    kernel: str = "auto"  # "auto" | "pallas" (fused iteration kernel) | "xla"
+    # XLA search sampler: "region" (per-patch regions + one-hot
+    # contractions) | "global" (reference-shaped direct gather)
+    sampler: str = "region"
+    # IC-LK search: "auto" (dis_tpu/backend.py decides per platform) |
+    # "pallas" (fused Pallas-Triton kernel, GPU only) | "xla"
+    kernel: str = "auto"
     refinement_iters: int = 0
     refinement_alpha: float = 10.0
     refinement_delta: float = 5.0
@@ -65,23 +70,11 @@ class DISConfig:
     # finest scale.  Compat mode is unaffected either way (the reference
     # skips refinement entirely, README.md:11).
     refine_per_level: bool = False
-    # Per-level refinement erases the static policing-chain bound on
-    # the next scale's init (the refined field is unbounded a priori),
-    # which silently drops 4K+ frames off the banded fast-extraction
-    # path — that path needs a static |init| bound to size its bands.
-    # With refined_init_clamp=True the refined flow is clamped to the
-    # SAME bound the unrefined pipeline guarantees (motion_bound(scale),
-    # the Q9 policing chain), restoring the static bound.  The clamp is
-    # a no-op unless refinement pushes flow beyond what the search
-    # could ever produce (far outside its own data term); applied
-    # identically in untiled and tiled modes, so exactness guarantees
-    # are unaffected.  Off by default: pure paper semantics.
-    refined_init_clamp: bool = False
     # Red-black Gauss-Seidel sweeps per IRLS outer iteration.
     refinement_inner_sweeps: int = 5
     # Relaxation sweeps per robust-weight update (lagged-diffusivity
-    # blocking): weights/system assembly is ~45% of a sweep's work, so
-    # K>1 trades slightly staler weights for ~1.4x cheaper sweeps.
+    # blocking): K>1 reuses one weights/system assembly for K sweeps,
+    # trading slightly staler weights for cheaper sweeps.
     refinement_sor_sweeps: int = 1
     # Red-black successive over-relaxation factor (1.0 = plain
     # Gauss-Seidel).  The DIS authors' refinement (OpenCV
@@ -95,8 +88,7 @@ class DISConfig:
     #   "warp1"   — warp only I2, then Sobel the warped image and
     #               average with I1's gradients (gradient averaging, the
     #               structure of the DIS authors' own OpenCV
-    #               VariationalRefinement).  1/6th the gather work; the
-    #               warp dominates refinement cost on TPU.
+    #               VariationalRefinement).  1/6th the gather work.
     refinement_scheme: str = "planes6"
     # Which image planes the refinement's data term reads:
     #   "q1"        — the pipeline's gradient-magnitude pyramid levels
@@ -201,7 +193,7 @@ DIS_MEDIUM = DISConfig(
     # the DIS authors' own implementation): ONE warp/linearization per
     # level, 5 lagged fixed-point weight updates x 5 SOR sweeps,
     # omega=1.6.  Measured better EPE than 5 re-warping outers at 1/5
-    # the warp cost (PERF_NOTES.md round-2 refinement A/B).
+    # the warp work.
     refinement_iters=1, refine_per_level=True,
     refinement_inner_sweeps=5, refinement_sor_sweeps=5,
     refinement_omega=1.6,

@@ -2,8 +2,8 @@
 
 The reference scatter-adds each patch's ``u`` (weight 0.5) over its
 ps x ps footprint, then normalizes by the accumulated weight
-(patch_grid.cpp:121-182; quirks Q2-intent/Q6/Q7).  Scatter is hostile
-to TPUs, so this is reformulated as a *transposed convolution*: the
+(patch_grid.cpp:121-182; quirks Q2-intent/Q6/Q7).  Instead of a
+scatter, this is reformulated as a *transposed convolution*: the
 per-patch values live on the regular patch grid, and a
 ``conv_general_dilated`` with lhs_dilation == patch stride and a
 ps x ps all-ones kernel places every patch's contribution over its
@@ -24,34 +24,21 @@ from jax import lax
 
 from .grid import GridGeometry
 
-# Densification algorithm selection (A/B benchmarking; all variants are
-# bit-compatible up to fp reassociation and tested against each other):
-#   dilated  — one depthwise conv_general_dilated (round-1 shipped path)
-#   batch    — same conv but channels as batch dim, C_in=1 (depthwise
-#              convs hit TPU's slow path; batched single-channel convs
-#              can be rewritten to the MXU)
+# Densification algorithm selection (all variants are bit-compatible up
+# to fp reassociation and tested against each other):
+#   dilated  — one depthwise conv_general_dilated
+#   batch    — same conv but channels as batch dim, C_in=1
 #   phases   — s^2 phase decomposition: each output phase (y%s, x%s) is
 #              a plain small-window sum over the patch grid (shifted
-#              adds), assembled with interior-dilated lax.pad
-# Measured on TPU v5e @1080p (benchmarks/tpu_experiments.py, chained
-# timing): steps=2: dilated 71.3 ms / batch 90.7 / phases 1.0 (70x);
-# steps=5: dilated 4.8 / batch 4.3 / phases 4.3.  phases is the default.
+#              adds), then interleaved (the default; at stride 2 the
+#              dilated conv does ~s^2 more work)
 _ALGO = os.environ.get("DIS_TPU_DENSIFY", "phases")
-# Phase-interleave assembly.  Isolated v5e numbers (stride-5 1080p,
-# same process): rowconv 2.45 ms (per-phase 1-D lane-dilated row convs,
-# free major-dim row merge), stack 3.61 ms (stack + tiled-dim-splitting
-# reshape), conv 8.03 ms (one-hot transposed conv).  END-TO-END however
-# rowconv LOSES BADLY — bench frame 40.5 vs 56.1 fps (framex 25.8 vs
-# 18.6 ms): the s 1-D dilated convs break XLA's fusion of the phase
-# sums into neighbors, a repeat of the round-1 row-packing lesson
-# (isolated wins lie when they unfuse the graph).  Round 5: "twostep"
-# (both phase merges on SUBLANES, two transposes, zero arithmetic —
-# bitwise equal to stack) removes the stack path's 25x lane-padded
-# [.., nj, s] physical inflation: device-op total 14.11 -> 12.16 ms
-# and bench 81.2 -> 82.7 fps mean over interleaved A/B; ships as the
-# default.  stack/rowconv/conv remain switchable (recorded negatives;
-# a 5th variant — lane spread via interior-dilated lax.pad + bitwise
-# OR — measured 0.4 ms PER PHASE, slow pad codegen, and was removed).
+# Phase-interleave assembly (all bitwise equal): "twostep" (the default:
+# both phase merges on the second-minor dim, two transposes, no
+# arithmetic), "stack" (one stack + reshape), "rowconv" (per-phase 1-D
+# dilated row convs) and "conv" (one-hot transposed conv).  An isolated
+# win that breaks XLA's fusion of the phase sums into their neighbors
+# can lose end to end.
 _ASSEMBLE = os.environ.get("DIS_TPU_ASSEMBLE", "twostep")
 
 
@@ -69,13 +56,6 @@ def densify(u: jnp.ndarray, geom: GridGeometry, width: int, height: int,
     global row ``out_row0`` and spans ``height`` rows; the caller must
     include every patch row whose footprint intersects the window.
 
-    (A trailing-channel custom_vmap batching rule — fold the pair batch
-    into the phase stencil's channel dim so the interleave stays
-    layout-friendly — was built and measured end-to-end NEUTRAL at
-    Sintel batch-4 (5.05 vs 5.03 ms/pair): the stack-assembly copy
-    persists in either layout, and the batched glue cost lives in the
-    kernel-I/O relayouts, not here.  Recorded in PERF_NOTES round 3;
-    code kept out per the isolated-wins rule.)
     """
     return _densify_impl(u, geom, width, height, ps, weights, out_row0)
 
@@ -92,8 +72,7 @@ def _densify_impl(u: jnp.ndarray, geom: GridGeometry, width: int, height: int,
         # constant — per-pixel patch coverage counts, small integers
         # that are exact in f32 under ANY summation order, so the
         # precomputed plane is bitwise what the device conv produces.
-        # Saves the whole weight-plane stencil + its interleave
-        # (~0.6 ms/frame at 1080p in the round-3 device trace).
+        # Saves the whole weight-plane stencil + its interleave.
         vg = ug
         wsum = jnp.asarray(_uniform_wsum(
             (geom.num_w, geom.num_h, geom.offset_w, geom.offset_h,
@@ -159,9 +138,7 @@ def _tconv_fn(geom: GridGeometry, width: int, height: int, ps: int,
     pad_hi_y = height - 1 + (ps - 1) - pad_lo_y - (dil_h - 1)
 
     def tconv_dilated(x, c):
-        # One fused 2-D dilated conv. (A separable two-pass variant was
-        # benchmarked end-to-end at 8.49 vs 9.40 fps — the single fused
-        # conv wins on TPU despite the extra arithmetic.)
+        # One fused 2-D dilated conv.
         lhs = x.transpose(2, 0, 1)[None]   # [1, c, num_h, num_w]
         ker = jnp.ones((c, 1, ps, ps), jnp.float32)  # depthwise ones
         out = lax.conv_general_dilated(
@@ -178,8 +155,7 @@ def _tconv_fn(geom: GridGeometry, width: int, height: int, ps: int,
 
     def tconv_batch(x, c):
         # Same dilated conv, but channels ride the BATCH dim with
-        # C_in=1: depthwise (grouped) convs take TPU's slow path while
-        # plain convs are MXU-rewritable.
+        # C_in=1 (a plain conv instead of a depthwise one).
         lhs = x.transpose(2, 0, 1)[:, None]  # [c, 1, num_h, num_w]
         ker = jnp.ones((1, 1, ps, ps), jnp.float32)
         out = lax.conv_general_dilated(
@@ -199,8 +175,8 @@ def _tconv_fn(geom: GridGeometry, width: int, height: int, ps: int,
         #   lo_p = ceil((p - pad_lo)/s), hi_p = floor((p - pad_lo + ps-1)/s)
         # (derived from the dilated-conv support condition
         #  gy*s in [y - pad_lo, y - pad_lo + ps - 1]); each phase is a
-        # tiny static-window sum over the grid (shifted adds — pure VPU,
-        # no dilated intermediates), assembled with interior-dilated
+        # tiny static-window sum over the grid (shifted adds, no
+        # dilated intermediates), assembled with interior-dilated
         # lax.pad.  Row sums are shared across column phases.
         # Generous zero-pad so every phase window slices in-bounds even
         # for stripe-mode grids where pad_lo can reach -(ps + half).
@@ -225,8 +201,7 @@ def _tconv_fn(geom: GridGeometry, width: int, height: int, ps: int,
                            else jnp.zeros((n_i[p], gw + 2 * P, c), x.dtype))
 
         # Interleave the s^2 phases with ONE stack + reshape instead of
-        # s^2 interior-dilated pad passes (the pad assembly costs
-        # ~4.3 ms at stride 5 vs a ~0.12 ms floor): pad every phase to a
+        # s^2 interior-dilated pad passes: pad every phase to a
         # common [n_max_i, n_max_j], stack as [n_i, s, n_j, s, c]
         # (y = i*s + p, x = j*s + q in row-major order), reshape, crop.
         ni_max = max(n_i)
@@ -250,24 +225,14 @@ def _tconv_fn(geom: GridGeometry, width: int, height: int, ps: int,
                                   (0, 0)))
             cols.append(ph)
         if _ASSEMBLE == "twostep":
-            # Two-step interleave that keeps BOTH phase merges on the
-            # SUBLANE dim.  The stack assembly's [ni, s, nj, s, c] puts
-            # the column phase q (size s) on the LANE dim — tiled
-            # (8,128), s=5 pads to 128 lanes, a ~25x physical inflation
-            # that bills 1.75 ms/frame at the 1080p finest scale
-            # (round-5 device trace: copy.187 0.65 + reshape.99 1.10).
-            # A lane interleave has no cheap XLA primitive (interior-
-            # dilated lax.pad measures 0.4 ms per phase — slow codegen,
-            # unfused; recorded negative in PERF_NOTES round 5), but a
-            # SUBLANE interleave is a dense 5->8-padded stack + merge.
-            # So: interleave rows on sublanes, transpose, interleave
-            # columns on sublanes, transpose back.  Pure data movement —
-            # no float arithmetic — hence trivially bitwise equal to the
-            # stack assembly (same values, same positions; verified in
-            # tests/test_densify_variants.py).  Channels ride the
-            # LEADING dim so no trailing c=2 ever becomes a lane dim;
-            # the final [c, H, W] -> [H, W, c] transpose is layout-only
-            # (XLA stores [H, W, 2] as {1,0,2} = c-major planar anyway).
+            # Two-step interleave that keeps BOTH phase merges off the
+            # minor dim (the stack assembly's [ni, s, nj, s, c] puts the
+            # column phase q, size s, on it): interleave rows, transpose,
+            # interleave columns, transpose back.  Pure data movement —
+            # no float arithmetic — hence bitwise equal to the stack
+            # assembly (tests/test_densify_variants.py).  Channels ride
+            # the LEADING dim; the final [c, H, W] -> [H, W, c]
+            # transpose is layout-only.
             ys = []
             for q in range(s):
                 lo, hi = wnd(q, pad_lo_x)
@@ -319,12 +284,10 @@ def _tconv_fn(geom: GridGeometry, width: int, height: int, ps: int,
             full = full.reshape(c, ni_max * s, width)
             return full[:, :height].transpose(1, 2, 0)
         if _ASSEMBLE == "conv":
-            # Interleave on the MXU: a one-hot transposed conv places
+            # Interleave as a conv: a one-hot transposed conv places
             # phase (p, q) at output (i*s+p, j*s+q) exactly (each output
-            # is one 1.0*x product; HIGHEST precision keeps the bf16x3
-            # copy exact).  The stack+reshape assembly's tiled-dim-
-            # splitting reshape bills ~2.4 ms at the 1080p finest scale
-            # in the round-2 device trace.
+            # is one 1.0*x product; HIGHEST precision keeps the copy
+            # exact).
             # lhs channels ordered (p, q, ci); kernel tap (s-1-p, s-1-q)
             # routes phase p,q to output parity (p, q) under
             # lhs_dilation=s, padding=s-1.

@@ -28,22 +28,19 @@ from __future__ import annotations
 import os as _os
 from typing import NamedTuple, Tuple
 
-import jax
 import jax.numpy as jnp
 from jax import lax
 
+from .. import backend
 from ..config import DISConfig
 
-# Template extraction route (all bit-exact; end-to-end v5e framex,
-# 1080p DIS-fast): "twostage_rw" 16.38 ms — separable decimation with
-# reduce_window column passes, the TPU auto default; "slices" (3*ps^2
-# lane-strided slices) 19.58 ms — the CPU auto default; "twostage"
-# 18.79 ms; "conv" (one MXU patches-conv, HIGHEST precision) loses at
-# the finest scale (5.64 vs 1.53 ms isolated) and is opt-in under
-# DIS_TPU_TEMPLATES_CONV_MAX (default 0 = never); "stacked3"/"rw" are
-# recorded dead ends kept switchable.
+# Template extraction form (all bit-exact): "auto" takes the platform's
+# choice (dis_tpu/backend.py); "slices" (3*ps^2 strided slices),
+# "twostage"/"twostage_rw" (separable row-then-column decimation),
+# "twostage_rw_t" (the same on transposed planes), "stacked3"/"rw" and
+# "conv" (one patches-conv at HIGHEST precision) stay selectable for
+# measurement.
 _TEMPLATES = _os.environ.get("DIS_TPU_TEMPLATES", "auto")
-_CONV_MAX_PATCHES = int(_os.environ.get("DIS_TPU_TEMPLATES_CONV_MAX", "0"))
 
 
 class PatchTemplates(NamedTuple):
@@ -57,8 +54,8 @@ class PatchTemplates(NamedTuple):
 # reductions).  "1" (default): pairwise trees behind optimization
 # barriers — batched == serial bitwise.  "0": plain jnp.sum /
 # compiler-chosen association — the pre-round-4 numerics, kept ONLY so
-# the barrier cost can be measured on chip (tools/trace_budget.py,
-# PERF_NOTES round-5 ledger).  Not a supported operating point: batched
+# the barrier cost can be measured on the card (tools/trace_budget.py).
+# Not a supported operating point: batched
 # pairs may drift 1 ulp from serial with it off.
 _BITWISE_SUMS = _os.environ.get("DIS_TPU_BITWISE_SUMS", "1") != "0"
 
@@ -160,7 +157,7 @@ def extract_templates_grid(img: jnp.ndarray, dx: jnp.ndarray, dy: jnp.ndarray,
     Patch centers sit on a regular ``steps``-strided lattice
     (patch_grid.cpp:43-44), so each of the ps*ps template taps is a
     strided slice of the level plane: 3 * ps^2 strided slices replace
-    the 3 * N * ps^2-element gather (measured ~20x faster on TPU).
+    the 3 * N * ps^2-element gather.
     Produces patches in the reference's x-outer/y-inner order.
     """
     s = geom.steps
@@ -173,37 +170,14 @@ def extract_templates_grid(img: jnp.ndarray, dx: jnp.ndarray, dy: jnp.ndarray,
 
     mode = _TEMPLATES
     if mode == "auto":
-        # Measured end-to-end on v5e (framex, 1080p DIS-fast compat):
-        # slices 19.58 ms, twostage 18.79, twostage_rw 16.38 — the
-        # separable reduce_window column decimation replaces the 4.6 ms
-        # (17.1 ms at 4K) of lane-strided slice ops.  CPU keeps slices
-        # (reduce_window decimation is ~2x slower there).  The conv
-        # route stays opt-in under DIS_TPU_TEMPLATES_CONV_MAX.
-        # "twostage_rw_t" (round-5 RECORDED NEGATIVE): the same
-        # decimation on transposed planes, so taps come out [nw, nh]
-        # and the x-outer flatten is a free major-dim merge instead of
-        # the nh<->nw relayout of the tap tensor (2.1 ms at 4K).
-        # Bitwise identical, but measured WORSE end-to-end (device-op
-        # total 13.20 vs 11.44 ms at 1080p, 56.9 vs 50.7 at 4K): the
-        # upfront plane transposes and the decimation over the
-        # transposed (tall-sublane) layout cost more than the relayout
-        # they remove.  Kept switchable.
-        if jax.default_backend() == "cpu":
-            mode = "slices"
-        elif n <= _CONV_MAX_PATCHES:
-            mode = "conv"
-        else:
-            mode = "twostage_rw"
+        mode = backend.choices().templates
 
     if mode in ("twostage", "twostage_rw"):
-        # Separable decimation: 8 row-decimating slices (sublane stride
-        # s, contiguous rows -> cheap DMA) then 64 column-decimating
-        # passes on the 5x-smaller compacts, instead of 192 (s,s)-strided
-        # plane slices that each re-touch ~1.7 MB of plane rows.  The
-        # column pass is a lane-strided slice ("twostage") or a
-        # window-1 stride-s reduce_window ("twostage_rw") — the same
-        # mechanism that beat strided slices 220x in resize_half; the
-        # lane-strided slice was the pathology all along.
+        # Separable decimation: ps row-decimating slices, then ps^2
+        # column-decimating passes on the s-times-smaller compacts,
+        # instead of 3*ps^2 (s,s)-strided slices of the whole plane.  The
+        # column pass is a strided slice ("twostage") or a window-1
+        # stride-s reduce_window ("twostage_rw").
         p3 = jnp.stack([img, dx, dy])                   # [3, Hp, Wp]
         xe = x0 + (geom.num_w - 1) * s + ps
         rows = []
@@ -228,10 +202,7 @@ def extract_templates_grid(img: jnp.ndarray, dx: jnp.ndarray, dy: jnp.ndarray,
                         (3, geom.num_h, i + (geom.num_w - 1) * s + 1),
                         (1, 1, s)))                     # [3, nh, nw]
         # Hessian sums via _tap_tree: pure elementwise adds on [nh, nw]
-        # planes — no stacks, no relayouts (pairwise_sum's
-        # trailing-dim-2 slices tile a 2-wide minor dim and cost
-        # ~1 ms/frame at 1080p; a tap-major stack + transpose costs
-        # ~0.5 ms).
+        # planes — no stacks, no relayouts.
         dxs = [t[1] for t in taps]
         dys = [t[2] for t in taps]
         abc = [_tap_tree([x * x for x in dxs]),
@@ -280,8 +251,7 @@ def extract_templates_grid(img: jnp.ndarray, dx: jnp.ndarray, dy: jnp.ndarray,
 
     if mode in ("stacked3", "rw"):
         # One [3, nh, nw] strided slice (or reduce_window decimation)
-        # per tap instead of three: same copies, one third the op count
-        # (the 3 * ps^2 slices bill ~4.6 ms/frame in the device trace).
+        # per tap instead of three: same copies, one third the op count.
         ye = y0 + (geom.num_h - 1) * s + 1
         xe = x0 + (geom.num_w - 1) * s + 1
         p3 = jnp.stack([img, dx, dy])                   # [3, Hp, Wp]
@@ -302,12 +272,10 @@ def extract_templates_grid(img: jnp.ndarray, dx: jnp.ndarray, dy: jnp.ndarray,
         return _templates_from_taps(st[0], st[1], st[2])
 
     if mode == "conv":
-        # One MXU patches-conv for all three planes replaces 3*ps^2
-        # strided slices (the round-2 device trace bills those at
-        # ~4.6 ms/frame across the four scales).  The one-hot identity
-        # filter at HIGHEST precision copies taps exactly (each output
-        # is one 1.0*x product plus zeros under the bf16x3 f32
-        # decomposition) — bit-identical to the slice path
+        # One patches-conv for all three planes replaces 3*ps^2 strided
+        # slices.  The one-hot identity filter at HIGHEST precision
+        # copies taps exactly (each output is one 1.0*x product plus
+        # zeros) — bit-identical to the slice path
         # (tests/test_pipeline_parity.py::test_templates_conv_matches_slices).
         ye = y0 + (geom.num_h - 1) * s + ps
         xe = x0 + (geom.num_w - 1) * s + ps
@@ -353,9 +321,9 @@ def _templates_from_taps(T: jnp.ndarray, Tdx: jnp.ndarray,
 
 
 def _templates_from_hessian(T, Tdx, Tdy, a, b, c) -> PatchTemplates:
-    """Assemble PatchTemplates from precomputed Hessian sums (the TPU
-    template route computes them in tap-major layout; same association
-    tree as pairwise_sum, so both spellings agree bitwise)."""
+    """Assemble PatchTemplates from precomputed Hessian sums (the
+    two-stage template forms compute them in tap-major layout; same
+    association tree as pairwise_sum, so both spellings agree bitwise)."""
     det = a * c - b * b
     guard = jnp.where(det == 0, jnp.float32(1e-10), jnp.float32(0.0))
     a = a + guard
@@ -413,42 +381,23 @@ def sample_patches(img2: jnp.ndarray, pos: jnp.ndarray, ps: int, pad: int,
     return q
 
 
-# Matmul precision for the XLA-fallback contractions (the region
-# sampler's one-hot bilinear einsum and the Hinv matvec).  "highest" is
-# the only correct setting on TPU — the default precision lowers these
-# f32 contractions to one truncating bf16 pass (CPU ignores precision,
-# so CPU tests cannot catch it).  "default" exists ONLY so
-# tools/chip_precision_check.py can demonstrate the footgun on chip.
-_prec_env = _os.environ.get("DIS_TPU_XLA_PRECISION", "highest").lower()
-if _prec_env not in ("highest", "default"):
-    raise ValueError(
-        "DIS_TPU_XLA_PRECISION must be 'highest' or 'default', got "
-        f"{_prec_env!r}")
-_XLA_PRECISION = {"highest": None, "default": "default"}[_prec_env]
-_PREC = (lax.Precision.HIGHEST if _XLA_PRECISION is None
-         else lax.Precision.DEFAULT)
-
-# Region rows packed per gathered row. Counter-intuitively, 1 is the
-# end-to-end winner at 1080p (9.40 vs 7.65 fps for 6): XLA fuses the
-# unpacked sliding-window build into the row gather, while the packed
-# variant materializes a ~1 GB intermediate and inflates the region
-# tensor the iteration kernel reads by Rr/Rc. Packing only wins in
-# isolation (17.5 vs 39 ms). Overridable for A/B benchmarking.
-_ROW_PACK = int(_os.environ.get("DIS_TPU_ROW_PACK", "1"))
+# f32 contractions (the region sampler's one-hot einsum and the Hinv
+# matvec) run at HIGHEST precision: on the GPU the default precision of
+# an f32 product may be TF32, which keeps ~3 decimal digits and would
+# corrupt every sampled value and search step.
+_PREC = lax.Precision.HIGHEST
 
 
 def region_shape(ps: int) -> Tuple[int, int]:
     """(rows, cols) of the per-patch sampling region."""
-    rc = 2 * ps + 3
-    rr = -(-rc // _ROW_PACK) * _ROW_PACK
-    return rr, rc
+    return 2 * ps + 3, 2 * ps + 3
 
 
 def extract_regions(img2: jnp.ndarray, pos0: jnp.ndarray, ps: int,
                     pad: int, row0: int = 0
                     ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
-    """Per-patch sampling regions for one scale: [N, Rr, Rc] with
-    Rc = 2*ps + 3 and Rr = Rc rounded up to the row-packing multiple.
+    """Per-patch sampling regions for one scale: [N, R, R] with
+    R = 2*ps + 3.
 
     Outlier policing (patch.cpp:185-194) bounds every sampled position
     within ``ps/2`` of the scale's start position, so all of a patch's
@@ -457,19 +406,12 @@ def extract_regions(img2: jnp.ndarray, pos0: jnp.ndarray, ps: int,
     float32 rounding slack at the policing boundary.  Every subsequent
     iteration samples from these regions without touching the image.
 
-    TPU note: a naive per-row gather moves a full (8,128) tile per
-    19-float row — 53x bandwidth waste.  We pack ``_ROW_PACK`` region
-    rows per gathered row (sliding-window restructure), which measured
-    2.2x faster than single-row gathers and 10x faster than element
-    gathers at 1080p.
-
     Returns (regions, base_y, base_x) where base is the region origin
     in padded-image coordinates.
     """
     th, tw = img2.shape
     half = ps // 2
     rr, rc = region_shape(ps)
-    groups = rr // _ROW_PACK
     n = pos0.shape[0]
     nudge = jnp.float32(1e-5)
     cpx0 = jnp.clip(jnp.ceil(pos0[:, 0] + nudge), -1e6, 1e6).astype(jnp.int32) + pad
@@ -478,17 +420,14 @@ def extract_regions(img2: jnp.ndarray, pos0: jnp.ndarray, ps: int,
     base_y = jnp.clip(cpy0 - ps - 2, 0, th - rr)
     base_x = jnp.clip(cpx0 - half - 1 - (half + 1), 0, tw - rc)
 
-    # Sliding windows along x: S[h, x, k] = img2[h, x + k], then pack
-    # _ROW_PACK consecutive image rows per flat row.
+    # Sliding windows along x: S[h, x, k] = img2[h, x + k]; one gathered
+    # row of S is one region row.
     ncols = tw - rc + 1
     S = jnp.stack([img2[:, k:k + ncols] for k in range(rc)], axis=-1)
-    hp = th - (_ROW_PACK - 1)
-    Sp = jnp.concatenate([S[i:hp + i] for i in range(_ROW_PACK)], axis=-1)
-    S2 = Sp.reshape(hp * ncols, _ROW_PACK * rc)
-    goff = jnp.arange(groups) * _ROW_PACK                     # [G]
-    rowidx = (base_y[:, None] + goff[None, :]) * ncols + base_x[:, None]
-    regions = jnp.take(S2, rowidx.reshape(-1), axis=0).reshape(
-        n, rr, rc)
+    S2 = S.reshape(th * ncols, rc)
+    rowidx = ((base_y[:, None] + jnp.arange(rr)[None, :]) * ncols
+              + base_x[:, None])
+    regions = jnp.take(S2, rowidx.reshape(-1), axis=0).reshape(n, rr, rc)
     return regions, base_y, base_x
 
 
@@ -502,8 +441,7 @@ def sample_from_regions(regions: jnp.ndarray, base_y: jnp.ndarray,
     tap base Q10, same weight/tap pairing, separably factored): the
     4-tap bilinear combination factors into a row selector
     [(1-b) at window row j, b at j+1] and a column selector
-    [(1-a) at i, a at i+1], applied as batched one-hot contractions —
-    MXU work instead of a per-element gather (measured 6x faster).
+    [(1-a) at i, a at i+1], applied as batched one-hot contractions.
     """
     n, rrows, rcols = regions.shape
     half = ps // 2
@@ -533,12 +471,8 @@ def sample_from_regions(regions: jnp.ndarray, base_y: jnp.ndarray,
             + (cc == cs[:, None, None] + ii + 1).astype(jnp.float32)
             * a[:, None, None])              # [N, Rc, ps]
 
-    # precision is load-bearing: on TPU the DEFAULT matmul precision
-    # lowers this contraction to one truncating bf16 pass, silently
-    # corrupting every sampled value on the kernel="xla" + region path
-    # (CPU tests cannot catch it — CPU ignores precision).  HIGHEST
-    # keeps the one-hot selector contraction exact (1.0/0.0 weights and
-    # the bf16x3 re-sum of the region values are exact in f32).
+    # HIGHEST keeps the one-hot selector contraction exact (see _PREC;
+    # the CPU ignores precision, so CPU tests cannot catch a lower one).
     q = jnp.einsum("njr,nrc,nci->nji", rs, regions, csel,
                    preferred_element_type=jnp.float32,
                    precision=_PREC).reshape(n, ps * ps)
@@ -556,73 +490,18 @@ class SearchResult(NamedTuple):
     #                         template, not a resample (patch.cpp:132-136)
 
 
-_EXTRACT = _os.environ.get("DIS_TPU_EXTRACT", "auto")
-
-
-def extraction_route(cfg: DISConfig, img_shape, n_patches: int,
-                     geom=None, init_bound=None) -> str:
-    """Which extraction path :func:`inverse_search` takes for a scale:
-
-    - ``"pallas_image"``  — whole-image VMEM kernel (fits <= ~1080p,
-      <= 131072 patches)
-    - ``"pallas_banded"`` — column-banded DMA kernel (any size, 4K+;
-      REQUIRES a static |init| bound to size the bands)
-    - ``"xla_regions"``   — XLA row-gather extraction (fallback)
-    - ``"global_gather"`` — no region pre-extraction (sampler="global"
-      + kernel="xla")
-
-    Pure function of static inputs so tests can pin each config's path
-    (round-2 VERDICT weak item #5: 4K + per-level refinement silently
-    fell off the banded path because the refined init has no static
-    bound; see config.py::refined_init_clamp for the fix, and the
-    UserWarning inverse_search raises on that fallback).
-    """
-    import jax as _jax
-
-    use_pallas = cfg.kernel == "pallas" or (
-        cfg.kernel == "auto" and _jax.default_backend() != "cpu")
-    use_regions = cfg.sampler == "region" or use_pallas
-    if not use_regions:
-        return "global_gather"
-    from .pallas.extract_kernel import band_width_ok, vmem_ok
-
-    rr, rc = region_shape(cfg.patch_size)
-    on_tpu = use_pallas and rr == rc and _jax.default_backend() != "cpu"
-    # SMEM budget for the whole-image kernel's scalar prefetch: two
-    # s32[npad] base arrays + program overhead against the ~1 MB SMEM.
-    # The old loose gate (n <= 131072, from "112k compiles / 200k
-    # fails") admitted 130,560 patches (medium preset, 1080p,
-    # coarsest_scale=4), which fails compilation 1.1 KB over budget —
-    # model the bytes instead and leave 32 KB slack for the program.
-    npad_est = -(-n_patches // 128) * 128
-    smem_fits = 8 * npad_est + 32 * 1024 <= 1 << 20
-    can_image = (_EXTRACT in ("auto", "image")
-                 and vmem_ok(*img_shape, cfg.patch_size)
-                 and smem_fits)
-    can_banded = (_EXTRACT in ("auto", "banded") and geom is not None
-                  and init_bound is not None
-                  and band_width_ok(cfg.patch_size, init_bound))
-    if on_tpu and can_image:
-        return "pallas_image"
-    if on_tpu and can_banded:
-        return "pallas_banded"
-    return "xla_regions"
-
-
 def inverse_search(img2: jnp.ndarray, tpl: PatchTemplates,
                    centers: jnp.ndarray, init_u: jnp.ndarray,
                    cfg: DISConfig, width: int, height: int,
-                   row0: int = 0, geom=None,
-                   init_bound=None) -> SearchResult:
+                   row0=0) -> SearchResult:
     """Run the full IC-LK iteration for every patch at one scale.
 
     Valid-region bounds from optical_flow.cpp:55-57:
     ``tmp_lb = -ps/2``, ``tmp_ub_w = w + ps/2 - 2``, ``tmp_ub_h = h + ps/2 - 2``.
 
-    ``geom``/``init_bound`` (grid geometry and a static bound on
-    ``|init_u|``) enable the column-banded Pallas extraction for frames
-    whose padded image exceeds the VMEM budget (4K+); without them such
-    frames fall back to the XLA extraction.
+    Which search runs is :func:`dis_tpu.backend.search_kernel`'s choice:
+    the fused Pallas-Triton kernel on the GPU, the XLA loop below on the
+    CPU (``cfg.kernel`` can pin either where it runs).
     """
     ps = cfg.patch_size
     pad = cfg.img_padding
@@ -646,55 +525,18 @@ def inverse_search(img2: jnp.ndarray, tpl: PatchTemplates,
     conv0 = oob(pos0)
     start_oob = conv0
 
-    use_pallas = cfg.kernel == "pallas" or (
-        cfg.kernel == "auto" and jax.default_backend() != "cpu")
-    use_regions = cfg.sampler == "region" or use_pallas
-    # Route decision is a pure function of static inputs (tested per
-    # config in tests/test_extraction_route.py).  The whole-image
-    # kernel's SMEM prefetch budget tops out between 112k (works) and
-    # 200k (compile failure) patches; larger grids go banded.  The
-    # extraction kernels run on real TPUs only (interpret mode is
-    # prohibitively slow for CPU tests); bit-equivalence to the XLA
-    # path is covered by tests/test_pallas_extract.py.
-    route = extraction_route(cfg, img2.shape, pos0.shape[0],
-                             geom=geom, init_bound=init_bound)
+    if backend.search_kernel(cfg.kernel) == "pallas":
+        from .pallas.iclk_kernel import inverse_search_pallas
 
-    if use_regions:
-        from .pallas.extract_kernel import (band_width_ok,
-                                            extract_regions_banded,
-                                            extract_regions_pallas, vmem_ok)
+        u, q, conv = inverse_search_pallas(
+            img2, tpl.T, tpl.Tdx, tpl.Tdy, Tn, tpl.Hinv, centers, init_u,
+            conv0, cfg, width, height, row0=row0)
+        _guard_result(u, q, centers, init_u, pos0, thresh, cfg)
+        return SearchResult(u=u, Q=q, converged=conv, start_oob=conv0)
 
-        if route == "xla_regions" and jax.default_backend() != "cpu" \
-                and use_pallas and not vmem_ok(*img2.shape, ps) \
-                and geom is not None and init_bound is None:
-            # The banded 4K path was available except for the missing
-            # static |init| bound (per-level refinement erases it) —
-            # a silent perf cliff in round 2; now loud.
-            import warnings
-
-            warnings.warn(
-                "frame too large for the whole-image extraction kernel "
-                "and no static init bound is available (per-level "
-                "refinement?): falling back to XLA gather extraction. "
-                "Set refined_init_clamp=True to restore the banded "
-                "fast path (config.py).", UserWarning, stacklevel=2)
-
-        if route == "pallas_image":
-            # Emit regions already padded to the search kernel's block
-            # multiple: skips the slice-to-N + re-pad round trip over
-            # the [N, R, R] HBM array (3.1 ms at 1080p, device trace).
-            from .pallas.iclk_kernel import search_padding
-            _, npad_s = search_padding(pos0.shape[0])
-            regions, base_y, base_x = extract_regions_pallas(
-                img2, pos0, ps, pad, row0=row0, pad_to=npad_s)
-        elif route == "pallas_banded":
-            # Column-banded DMA extraction: any resolution (4K+), VMEM
-            # holds only one grid column's band.
-            regions, base_y, base_x = extract_regions_banded(
-                img2, pos0, ps, pad, geom.num_w, geom.num_h, row0=row0)
-        else:
-            regions, base_y, base_x = extract_regions(img2, pos0, ps, pad,
-                                                      row0=row0)
+    if cfg.sampler == "region":
+        regions, base_y, base_x = extract_regions(img2, pos0, ps, pad,
+                                                  row0=row0)
 
         def sampler(pos):
             return sample_from_regions(regions, base_y, base_x, pos, ps, pad,
@@ -703,16 +545,6 @@ def inverse_search(img2: jnp.ndarray, tpl: PatchTemplates,
         def sampler(pos):
             return sample_patches(img2, pos, ps, pad,
                                   cfg.patch_normalization, row0=row0)
-
-    if use_pallas:
-        from .pallas.iclk_kernel import inverse_search_pallas
-
-        u, q, conv = inverse_search_pallas(
-            regions, base_y, base_x, tpl.T, tpl.Tdx, tpl.Tdy, tpl.Hinv,
-            centers, init_u, conv0, cfg, width, height, row0=row0,
-            interpret=jax.default_backend() == "cpu")
-        _guard_result(u, q, centers, init_u, pos0, thresh, cfg)
-        return SearchResult(u=u, Q=q, converged=conv, start_oob=conv0)
 
     Q0 = jnp.where(conv0[:, None], tpl.T, sampler(pos0))
 
@@ -731,9 +563,7 @@ def inverse_search(img2: jnp.ndarray, tpl: PatchTemplates,
         R = Q - Tn if fixed else Q
         rhs = jnp.stack([(tpl.Tdx * R).sum(axis=1),
                          (tpl.Tdy * R).sum(axis=1)], -1)
-        # HIGHEST: keep the 2x2 solve in true f32 if XLA routes this
-        # batched matvec to the MXU (default precision would truncate
-        # Hinv/rhs to one bf16 pass on TPU).
+        # HIGHEST: keep the 2x2 solve in true f32 (no TF32; see _PREC).
         delta = jnp.einsum("nij,nj->ni", tpl.Hinv, rhs, precision=_PREC)
         u_new = u - delta
         p_new = centers + u_new

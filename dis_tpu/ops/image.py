@@ -51,8 +51,8 @@ def gradient_magnitude(img: jnp.ndarray) -> jnp.ndarray:
     return jnp.sqrt(dx * dx + dy * dy)
 
 
-# Read per call (not snapshotted at import) so harnesses can toggle the
-# knob via os.environ between measurements, matching DIS_TPU_PYRAMID.
+# Read per call (not snapshotted at import) so a measurement can toggle
+# the form via os.environ between runs.
 def _resize_mode() -> str:
     return _os.environ.get("DIS_TPU_RESIZE", "auto")
 
@@ -61,15 +61,11 @@ def resize_half(img: jnp.ndarray) -> jnp.ndarray:
     """``cv::resize(x0.5, INTER_LINEAR)`` == exact 2x2 box mean for even
     dims (main.cpp:29).
 
-    Formulations (ulp-equivalent 2x2 means; ``DIS_TPU_RESIZE`` A/B,
-    measured on v5e at 1088x1920): ``window`` (2x2/2x2
-    ``reduce_window``) 0.107 ms; ``reshape`` (split both tiled dims,
-    [H,W] -> [H/2,2,W/2,2] + mean) 1.66 ms — the round-2 device trace
-    bills it as a 0.8 ms relayout plus 0.7 ms reduce per image;
-    ``slices`` (four stride-2 slices + adds) 23.8 ms — strided lane
-    slices hit a catastrophic XLA path, never use.  All three returned
-    bit-identical outputs on the bench image.  ``auto`` = window on
-    accelerators, reshape on CPU (reduce_window is ~2x slower there)."""
+    Formulations (ulp-equivalent 2x2 means, ``DIS_TPU_RESIZE``):
+    ``window`` (one 2x2/2x2 ``reduce_window``), ``window2`` (separable,
+    forced association, below), ``reshape`` ([H,W] -> [H/2,2,W/2,2] +
+    mean) and ``slices`` (four stride-2 slices + adds).  ``auto`` takes
+    the platform's choice (dis_tpu/backend.py)."""
     h, w = img.shape
     assert h % 2 == 0 and w % 2 == 0, (
         f"resize_half requires even dims, got {h}x{w}: the pipeline "
@@ -78,9 +74,9 @@ def resize_half(img: jnp.ndarray) -> jnp.ndarray:
         "formulations and shape-error in others")
     mode = _resize_mode()
     if mode == "auto":
-        import jax
+        from .. import backend
 
-        mode = "reshape" if jax.default_backend() == "cpu" else "window2"
+        mode = backend.choices().resize
     if mode == "reshape":
         return img.reshape(h // 2, 2, w // 2, 2).mean(axis=(1, 3))
     if mode == "window":
@@ -89,15 +85,11 @@ def resize_half(img: jnp.ndarray) -> jnp.ndarray:
         return s * jnp.float32(0.25)
     if mode == "window2":
         # Separable with a FORCED association (a+c)+(b+d): an explicit
-        # sublane-stride-2 add (row pairs; float add semantics are fixed
-        # in HLO) followed by a TWO-element lane reduce_window (no
+        # stride-2 row-pair add (float add semantics are fixed in HLO)
+        # followed by a TWO-element reduce_window along columns (no
         # association freedom) — context-independent, unlike the
-        # one-pass (2,2) window whose 4-add association XLA re-picks
-        # under vmap (batched pairs ran 1 ulp off serial on ~23% of
-        # pixels on chip; round 4).  Chip-measured 0.10 ms for two
-        # 1080p images vs 0.38 one-pass; the two-reduce_window spelling
-        # of the same tree costs ~1.1 ms/frame extra instead (bitwise
-        # equal to this one, kept as history in PERF_NOTES).
+        # one-pass (2,2) window whose 4-add association XLA may re-pick
+        # under vmap (batched pairs then drift 1 ulp off serial).
         s = img[0::2, :] + img[1::2, :]
         s = lax.reduce_window(s, jnp.float32(0), lax.add,
                               (1, 2), (1, 2), "VALID")

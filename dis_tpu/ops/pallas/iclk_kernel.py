@@ -1,312 +1,141 @@
-"""Fused Pallas IC-LK iteration kernel.
+"""Fused IC-LK search kernel for the GPU (Pallas, Triton route).
 
 The hot loop of DIS (patch.cpp:156-203 per patch, dispatched serially
-in the reference) runs here as ONE kernel per scale: the grid walks
-patch blocks, each block's sampling regions live in VMEM for the whole
-iteration loop, and every operation is vectorized across B patches on
-the lane dimension.  Per iteration and patch: two 64-point dots, a 2x2
-solve, policing, and a separable one-hot bilinear resample from the
-patch's private region — all VPU work on [.., B] tiles; HBM is touched
-once per block (regions in, state out) instead of once per iteration.
+in the reference) runs here as ONE kernel launch per scale.  Patches
+never interact within a scale, so each program owns a power-of-two
+block of patches and runs the whole iteration loop for them: template,
+gradients, the 2x2 inverse Hessian and the state stay in registers; the
+bilinear taps of every iteration are gathered straight from the padded
+level plane by index arithmetic (a 1080p plane is ~8.5 MB and stays
+resident in the card's L2).  No per-patch region is pre-extracted, and
+the loop exits early per block once every patch in it is frozen, with
+no round trip to the host.
 
-Numerics match the XLA region path (ops/iclk.py) exactly: same
-ceil(+1e-5f) tap base (Q10), same weight/tap pairing, same policing
-order (Q9), same fixed ``iterations + 1`` trip count (Q5).
+Numerics follow ops/iclk.py::inverse_search with the direct sampler
+(``sample_patches``): the ``ceil(pos + 1e-5)`` float32 tap base (Q10),
+the same weight/tap pairing, the policing order (Q9) and the
+``iterations + 1`` trip count (Q5).  Sums reduce in the kernel's own
+order and the compiler may contract multiply-adds differently, so the
+result is ulp-equivalent to the XLA search, not bitwise; a discrete
+policing decision can flip on a knife edge (tests/test_pallas_iclk.py
+bounds the share).
 
-Mosaic notes: loop carries are kept 2-D float32 ([1, B] / [ps*ps, B]) —
-1-D or boolean carries pick up implicit-2D layouts that fail to
-legalize in ``scf.for``.
+Patch-size tap counts that are not powers of two (ps=12: 144 taps) are
+padded to the next power of two and masked.
 """
 
 from __future__ import annotations
 
 import functools
-import os
 from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ...config import DISConfig
 
-# In-kernel resample algorithm (bit-identical outputs; A/B benchmarking):
-#   onehot — separable one-hot contractions (round-1 shipped path):
-#            8 masked full-region reductions for the column stage.
-#   align  — blend-then-align: one column blend pass, then the per-patch
-#            window start (cs, ws in [0, rc-(ps+1)]) is applied with
-#            log2-staged conditional rolls (shifts 1/2/4/8 selected per
-#            lane), after which every output tap is a static slice.
-#            Same multiply/add order per element; ulp-equivalent (XLA
-#            fuses the two structures differently).  Measured on v5e
-#            @1080p finest scale: search 33.6 ms -> 20.5 ms.
-#   align2 — align with DESCENDING-bit conditional shifts and progressive
-#            width narrowing (row stages at width ps, late column rolls
-#            one tile narrower).  Measured on v5e @1080p finest scale:
-#            search stage 12.7 -> 10.3 ms over align; whole frame
-#            30.6 -> 27.3 ms (36.7 fps).
-_SAMPLER = os.environ.get("DIS_TPU_SAMPLER", "align2")
+# Elements of one [patches, taps] tile per program: 32 patches x 64 taps
+# at ps=8, 8 x 256 at ps=12.  With 4 warps each thread holds 16 values
+# of every live tile.
+_TILE = 2048
+_NUM_WARPS = 4
 
-# Region-tensor relayout route to the kernel layout [nb, rr, rc, block]:
-#   4d — one 4-D XLA transpose of the extraction output (minor dims
-#        19x19: slow relayout, 8.3 ms at 1080p per round-1 PERF_NOTES).
-#   2d — a plain 2-D transpose [npad, 361] -> [361, npad] followed by a
-#        major-dim swap (contiguous 2 KB runs); same final array.
-#   mxu — contract the patch dim against a block-size identity on the
-#        MXU (bit-exact; ~0.6 ms of matmul at 1080p vs ~3 ms relayout).
-# Measured on v5e: 2d is ~1 ms SLOWER end-to-end (XLA evidently merges
-# the pair back into a relayout plus an extra copy).  Round-2 honest
-# (optimization_barrier) isolated timing: 4d 0.865 ms, mxu 0.705 ms and
-# end-to-end frame 19.63 vs 19.32 ms — BUT that mxu build ran the dot
-# at DEFAULT precision (single truncating bf16 pass, not bit-exact on
-# chip; the CPU equality test cannot see it).  With the required
-# HIGHEST precision the mxu route re-measures SLOWER end-to-end
-# (frame 20.36 vs 18.61 ms, same process) — 4d stays the default.
-_REG_LAYOUT = os.environ.get("DIS_TPU_REG_LAYOUT", "4d")
-
-# Iteration loops at or below this trip count are Python-unrolled in
-# the kernel (0 disables).  RECORDED NEGATIVE (round 5): the iteration
-# chain is sequentially dependent, so unlike the extraction kernel's
-# unroll this exposes no new parallelism — only removes the scf.for
-# carry handling, and the bigger body schedules slightly WORSE
-# (finest-scale kernel 3.107 vs 3.042 ms by device trace at unroll 32
-# vs fori).  Kept switchable for re-evaluation on other hardware.
-_ITER_UNROLL = int(os.environ.get("DIS_TPU_ITER_UNROLL", "0"))
-
-# meta row indices (f32 meta array [M_ROWS, B])
+# rows of the f32 per-patch meta array [M_ROWS, total]
 M_IAA, M_IAB, M_IBB = 0, 1, 2          # inverse Hessian entries
 M_IUX, M_IUY = 3, 4                    # init_u
-M_SX, M_SY = 5, 6                      # start position (pos0)
-M_CX, M_CY = 7, 8                      # patch center
-# Region base in CEIL coordinates: base - (padding - row0), i.e. the
-# value ``ceil(pos)`` is compared against directly.  Folding the padded
-# -plane offsets into the meta (instead of baking pad_x/pad_y into the
-# kernel) keeps the kernel row0-agnostic, so one kernel program serves
-# every stripe of the deduped tiled switch with row0 as traced data.
-M_BX, M_BY = 9, 10
-M_CONV0 = 11                           # initially-converged mask (1.0/0.0)
-M_ROWS = 12
+M_CX, M_CY = 5, 6                      # patch center (unpadded coords)
+M_CONV0 = 7                            # frozen at start (1.0 / 0.0)
+M_YOFF = 8                             # padding - row0 (integer-valued)
+M_ROWS = 9
 
 
-def _iclk_kernel(meta_ref, tdx_ref, tdy_ref, reg_ref, traw_ref,
-                 u_ref, q_ref, conv_ref, *,
-                 n_iters: int, ps: int, rr: int, rc: int,
-                 lb: float, ub_w: float, ub_h: float, thresh: float,
-                 normalize: bool, fixed: bool, conv_eps: float,
-                 tn_ref=None, sampler: str = "onehot",
-                 reg_layout: str = "4d"):
-    half = ps // 2
+def _next_pow2(n: int) -> int:
+    return 1 << (n - 1).bit_length()
+
+
+def search_block(ps: int) -> Tuple[int, int]:
+    """(patches per program, padded tap count) for patch size ``ps``."""
+    taps = _next_pow2(ps * ps)
+    return max(1, _TILE // taps), taps
+
+
+def _kernel(img_ref, meta_ref, t_ref, tdx_ref, tdy_ref, tn_ref,
+            u_ref, q_ref, conv_ref, *,
+            block: int, taps: int, nb: int, total: int, plane: int,
+            tmp_h: int, tmp_w: int, n_iters: int, ps: int, pad: int,
+            lb: float, ub_w: float, ub_h: float, thresh: float,
+            normalize: bool, fixed: bool, conv_eps: float):
     f32 = jnp.float32
+    pp = ps * ps
+    half = ps // 2
+    pid = pl.program_id(0)
+    img_base = (pid // nb) * plane       # this block's pair's plane
 
-    def mrow(i):  # [1, B] f32
-        return meta_ref[0, i:i + 1, :]
+    g = pid * block + jnp.arange(block)  # [B] global patch rows
+    tap = jnp.arange(taps)
+    tmask = (tap < pp)[None, :]          # [1, T]
+    tap_c = jnp.where(tap < pp, tap, 0)
+    tj = (tap_c // ps)[None, :]          # template row j
+    ti = (tap_c % ps)[None, :]           # template col i
+    toff = g[:, None] * taps + tap[None, :]       # [B, T]
+
+    def load_tpl(ref):          # zero-padded to T taps by the wrapper
+        return plgpu.load(ref.at[toff])
+
+    def mrow(k):
+        return plgpu.load(meta_ref.at[k * total + g])
 
     iaa, iab, ibb = mrow(M_IAA), mrow(M_IAB), mrow(M_IBB)
     iux, iuy = mrow(M_IUX), mrow(M_IUY)
-    sx, sy = mrow(M_SX), mrow(M_SY)
     cx, cy = mrow(M_CX), mrow(M_CY)
-    bx = mrow(M_BX).astype(jnp.int32)
-    by = mrow(M_BY).astype(jnp.int32)
     conv0 = mrow(M_CONV0)
+    yoff = mrow(M_YOFF).astype(jnp.int32)
+    sx = cx + iux                        # start position pos0
+    sy = cy + iuy
+    tdx = load_tpl(tdx_ref)
+    tdy = load_tpl(tdy_ref)
+    tn = load_tpl(tn_ref) if fixed else None
 
-    tdx = tdx_ref[0, :, :]       # [ps*ps, B]
-    tdy = tdy_ref[0, :, :]
-    if reg_layout == "inkernel":
-        # RECORDED NEGATIVE (round 3): regions arrive in the extraction
-        # kernel's native [B, Rr*Rc] layout (free reshape outside) and
-        # the lane-major relayout happens HERE as an MXU identity
-        # contraction per block — VMEM-local, intended to replace the
-        # 1.65 ms/frame XLA relayout copy.  Bit-exact, but measured
-        # 24.0 ms vs 14.3 ms at 1080p/block 128: the contraction runs
-        # at HIGHEST (6 bf16 passes) over dim 0 of a [128, 361] LHS —
-        # a transposed-LHS matmul Mosaic serializes poorly per block.
-        # Kept switchable for re-evaluation on other hardware.
-        A = reg_ref[0, :, :]                       # [B, Rr*Rc]
-        eye = jnp.eye(A.shape[0], dtype=f32)
-        At = lax.dot_general(A, eye, (((0,), (0,)), ((), ())),
-                             preferred_element_type=jnp.float32,
-                             precision=lax.Precision.HIGHEST)
-        regions = At.reshape(rr, rc, A.shape[0])   # [Rr, Rc, B]
-    else:
-        regions = reg_ref[0, :, :, :]  # [Rr, Rc, B]
-
-    B = tdx.shape[-1]
-    riota_r = lax.broadcasted_iota(jnp.int32, (rr, B), 0)  # region row idx
-    riota_c = lax.broadcasted_iota(jnp.int32, (rc, B), 0)  # region col idx
-
-    def sample(posx, posy):
-        """Separable one-hot bilinear resample -> [ps*ps, B].
-
-        posx/posy: [1, B] float32.
-        """
-        a = posx - jnp.floor(posx)          # [1, B]
-        b = posy - jnp.floor(posy)
+    def sample(px, py):
+        """Bilinear warped patch [B, T] at positions px/py [B]
+        (ops/iclk.py::sample_patches, tap by tap)."""
+        a = px - jnp.floor(px)
+        b = py - jnp.floor(py)
+        w0 = ((1 - a) * (1 - b))[:, None]
+        w1 = (a * (1 - b))[:, None]
+        w2 = (b * (1 - a))[:, None]
+        w3 = (a * b)[:, None]
         nudge = f32(1e-5)
-        cpx = jnp.clip(jnp.ceil(posx + nudge), -1e6, 1e6).astype(jnp.int32)
-        cpy = jnp.clip(jnp.ceil(posy + nudge), -1e6, 1e6).astype(jnp.int32)
-        ws = jnp.clip(cpy - half - 1 - by, 0, rr - (ps + 1))  # [1, B]
-        cs = jnp.clip(cpx - half - 1 - bx, 0, rc - (ps + 1))
+        cpx = jnp.clip(jnp.ceil(px + nudge), -1e6, 1e6).astype(jnp.int32) + pad
+        cpy = jnp.clip(jnp.ceil(py + nudge), -1e6, 1e6).astype(jnp.int32) + yoff
+        r0 = (cpy - half - 1)[:, None] + tj
+        c0 = (cpx - half - 1)[:, None] + ti
+        r0c = jnp.clip(r0, 0, tmp_h - 1) * tmp_w + img_base
+        r1c = jnp.clip(r0 + 1, 0, tmp_h - 1) * tmp_w + img_base
+        c0c = jnp.clip(c0, 0, tmp_w - 1)
+        c1c = jnp.clip(c0 + 1, 0, tmp_w - 1)
 
-        # Column stage: rcol_k[r, n] = (1-a) reg[r, cs+k, n] + a reg[r, cs+k+1, n]
-        rcols = []
-        for k in range(ps):
-            m = (jnp.where(riota_c == cs + k, 1.0 - a, f32(0))
-                 + jnp.where(riota_c == cs + k + 1, a, f32(0)))   # [Rc, B]
-            rcols.append(jnp.sum(regions * m[None, :, :], axis=1))  # [Rr, B]
+        def tapv(r, c):
+            return plgpu.load(img_ref.at[r + c], mask=tmask, other=0.0)
 
-        # Row stage: q[j*ps + k, n] = (1-b) rcol_k[ws+j, n] + b rcol_k[ws+j+1, n]
-        rows = []
-        for j in range(ps):
-            m = (jnp.where(riota_r == ws + j, 1.0 - b, f32(0))
-                 + jnp.where(riota_r == ws + j + 1, b, f32(0)))   # [Rr, B]
-            for k in range(ps):
-                rows.append(jnp.sum(rcols[k] * m, axis=0, keepdims=True))
-        q = jnp.concatenate(rows, axis=0)  # [ps*ps, B] row-major (j, i)
+        q = (w3 * tapv(r1c, c1c) + w2 * tapv(r1c, c0c)
+             + w1 * tapv(r0c, c1c) + w0 * tapv(r0c, c0c))
         if normalize:
-            q = q - jnp.sum(q, axis=0, keepdims=True) * f32(1.0 / (ps * ps))
+            q = q - (jnp.sum(q, axis=1, keepdims=True)
+                     * f32(1.0 / pp))
+            q = jnp.where(tmask, q, 0.0)
         return q
 
-    # Conditional-roll bits covering the window-start range [0, R-(ps+1)].
-    def _shift_bits(span):
-        bits = []
-        b = 1
-        while b <= span:
-            bits.append(b)
-            b <<= 1
-        return bits
-
-    def sample_align(posx, posy):
-        """Blend-then-align resample -> [ps*ps, B], bit-identical to
-        :func:`sample` (same per-element multiply/add order).
-
-        One column-blend pass replaces the 8 masked full-region
-        reductions; the per-patch window offsets are then applied with
-        log2-staged conditional shifts (data movement instead of
-        arithmetic), leaving every output tap a static slice.
-        """
-        a = posx - jnp.floor(posx)          # [1, B]
-        b = posy - jnp.floor(posy)
-        nudge = f32(1e-5)
-        cpx = jnp.clip(jnp.ceil(posx + nudge), -1e6, 1e6).astype(jnp.int32)
-        cpy = jnp.clip(jnp.ceil(posy + nudge), -1e6, 1e6).astype(jnp.int32)
-        ws = jnp.clip(cpy - half - 1 - by, 0, rr - (ps + 1))  # [1, B]
-        cs = jnp.clip(cpx - half - 1 - bx, 0, rc - (ps + 1))
-
-        # Column blend: Rb[r, c] = (1-a) reg[r, c] + a reg[r, c+1]
-        # (the column-rolled tail c = rc-1 is never read: c+cs <= rc-2).
-        Rb = ((1.0 - a)[None] * regions
-              + a[None] * pltpu.roll(regions, rc - 1, 1))
-        # Column align: CA[r, c] = Rb[r, c + cs] for c in [0, ps-1].
-        CA = Rb
-        for bit in _shift_bits(rc - (ps + 1)):
-            take = ((cs & bit) != 0)[None]              # [1, 1, B]
-            CA = jnp.where(take, pltpu.roll(CA, rc - bit, 1), CA)
-        # Row blend: RB[r, c] = (1-b) CA[r, c] + b CA[r+1, c].
-        CA1 = jnp.concatenate([CA[1:], CA[:1]], axis=0)
-        RB = (1.0 - b)[None] * CA + b[None] * CA1
-        # Row align: RA[j, c] = RB[j + ws, c] for j in [0, ps-1].
-        RA = RB
-        for bit in _shift_bits(rr - (ps + 1)):
-            take = ((ws & bit) != 0)[None]
-            RA = jnp.where(take,
-                           jnp.concatenate([RA[bit:], RA[:bit]], axis=0),
-                           RA)
-        # q[j*ps + i, b] = RA[j, i, b]: ps stacked [ps, B] static tiles.
-        q = jnp.concatenate([RA[j, :ps, :] for j in range(ps)], axis=0)
-        if normalize:
-            q = q - jnp.sum(q, axis=0, keepdims=True) * f32(1.0 / (ps * ps))
-        return q
-
-    def _bits_desc(span):
-        return list(reversed(_shift_bits(span)))
-
-    def sample_align2(posx, posy):
-        """Narrowing blend-then-align resample -> [ps*ps, B]; same written
-        arithmetic as :func:`sample_align` (ulp-equivalent: narrowed
-        operand widths shift compiler fma/fusion choices).
-
-        Same structure as ``align`` but the conditional shift stages run
-        in DESCENDING bit order with progressive width narrowing: after
-        applying bit ``k`` the maximum remaining shift shrinks, so the
-        columns/rows beyond ``ps + rem`` can never be read again and are
-        sliced off before the next stage.  Columns narrow to the next
-        sublane-tile multiple (19 -> 16 -> 8); rows (major dim) narrow to
-        the exact need.  This removes ~1/3 of the per-iteration VPU
-        passes vs ``align`` (the row stages run at width ps instead of
-        rc, and late column rolls at 16 instead of 24 effective).
-        """
-        a = posx - jnp.floor(posx)          # [1, B]
-        b = posy - jnp.floor(posy)
-        nudge = f32(1e-5)
-        cpx = jnp.clip(jnp.ceil(posx + nudge), -1e6, 1e6).astype(jnp.int32)
-        cpy = jnp.clip(jnp.ceil(posy + nudge), -1e6, 1e6).astype(jnp.int32)
-        ws = jnp.clip(cpy - half - 1 - by, 0, rr - (ps + 1))  # [1, B]
-        cs = jnp.clip(cpx - half - 1 - bx, 0, rc - (ps + 1))
-
-        # Column blend: Rb[r, c] = (1-a) reg[r, c] + a reg[r, c+1]
-        Rb = ((1.0 - a)[None] * regions
-              + a[None] * pltpu.roll(regions, rc - 1, 1))
-        # Column align with narrowing (sublane dim: widths stay
-        # tile-multiples so slices are free tile drops).
-        CA = Rb
-        w = rc
-        rem = rc - (ps + 1)
-        for bit in _bits_desc(rc - (ps + 1)):
-            take = ((cs & bit) != 0)[None]              # [1, 1, B]
-            CA = jnp.where(take, pltpu.roll(CA, w - bit, 1), CA)
-            # taken lanes: rem-bit left; untaken: cs had bit clear so
-            # cs mod (2*bit) <= bit-1 given higher bits already applied.
-            rem = max(rem - bit, min(rem, bit - 1))
-            w_new = min(w, -(-(ps + rem) // 8) * 8)
-            if w_new < w:
-                CA = CA[:, :w_new, :]
-                w = w_new
-        CA = CA[:, :ps, :]                              # rem == 0
-        # Row blend: RB[r, c] = (1-b) CA[r, c] + b CA[r+1, c].
-        CA1 = jnp.concatenate([CA[1:], CA[:1]], axis=0)
-        RA = (1.0 - b)[None] * CA + b[None] * CA1
-        h = rr
-        rem = rr - (ps + 1)
-        for bit in _bits_desc(rr - (ps + 1)):
-            take = ((ws & bit) != 0)[None]
-            rem = max(rem - bit, min(rem, bit - 1))
-            need = ps + rem
-            src = RA[bit:]
-            if h - bit < need:
-                # wrap-fill rows are only materialized, never selected:
-                # taken lanes read < (rem_taken + ps) <= h - bit rows.
-                src = jnp.concatenate([src, RA[:need - (h - bit)]], axis=0)
-            else:
-                src = src[:need]
-            RA = jnp.where(take, src, RA[:need])
-            h = need
-        # q[j*ps + i, b] = RA[j, i, b]: ps stacked [ps, B] static tiles.
-        q = jnp.concatenate([RA[j, :, :] for j in range(ps)], axis=0)
-        if normalize:
-            q = q - jnp.sum(q, axis=0, keepdims=True) * f32(1.0 / (ps * ps))
-        return q
-
-    if sampler == "align":
-        sample = sample_align
-    elif sampler == "align2":
-        sample = sample_align2
-
-    def oob_f(px, py):  # [1, B] float mask
-        bad = (px < lb) | (py < lb) | (px > ub_w) | (py > ub_h)
-        return bad.astype(f32)
-
-    tn = tn_ref[0, :, :] if fixed and tn_ref is not None else None
-
-    def body(_, state):
-        ux, uy, q, conv = state            # [1,B] x3 f32, q [ps*ps, B]
-        frozen = conv > 0.5                # [1, B] bool (value-level only)
+    def body(state):
+        it, ux, uy, q, conv = state
+        frozen = conv > 0.5
         r = q - tn if fixed else q
-        rhs_x = jnp.sum(tdx * r, axis=0, keepdims=True)   # [1, B]
-        rhs_y = jnp.sum(tdy * r, axis=0, keepdims=True)
-        dx = iaa * rhs_x + iab * rhs_y
-        dy = iab * rhs_x + ibb * rhs_y
+        rx = jnp.sum(tdx * r, axis=1)
+        ry = jnp.sum(tdy * r, axis=1)
+        dx = iaa * rx + iab * ry
+        dy = iab * rx + ibb * ry
         ux_new = ux - dx
         uy_new = uy - dy
         px = cx + ux_new
@@ -314,281 +143,141 @@ def _iclk_kernel(meta_ref, tdx_ref, tdy_ref, reg_ref, traw_ref,
         mx = sx - px
         my = sy - py
         dist = jnp.sqrt(mx * mx + my * my)
-        policed = (dist > thresh) | (oob_f(px, py) > 0.5)
-        ux_nxt = jnp.where(policed, iux, ux_new)
-        uy_nxt = jnp.where(policed, iuy, uy_new)
-        ux = jnp.where(frozen, ux, ux_nxt)
-        uy = jnp.where(frozen, uy, uy_nxt)
-        px = cx + ux
-        py = cy + uy
-        qs = sample(px, py)
-        q = jnp.where(frozen, q, qs)
+        oob = (px < lb) | (py < lb) | (px > ub_w) | (py > ub_h)
+        policed = (dist > thresh) | oob
+        ux = jnp.where(frozen, ux, jnp.where(policed, iux, ux_new))
+        uy = jnp.where(frozen, uy, jnp.where(policed, iuy, uy_new))
+        qs = sample(cx + ux, cy + uy)
+        q = jnp.where(frozen[:, None], q, qs)
         newly = (~frozen) & policed
         if fixed:
             small = jnp.sqrt(dx * dx + dy * dy) < f32(conv_eps)
             newly = newly | ((~frozen) & small)
         conv = jnp.maximum(conv, newly.astype(f32))
-        return ux, uy, q, conv
+        return it + 1, ux, uy, q, conv
 
-    # Initial resample (patch.cpp:119-154): OOB start freezes the patch
-    # with patch_second = raw template (quirk; patch.cpp:136).
-    t_raw = traw_ref[0, :, :]
-    q0 = jnp.where(conv0 > 0.5, t_raw, sample(cx + iux, cy + iuy))
+    def cond(state):
+        it, _, _, _, conv = state
+        return (it < n_iters) & (jnp.min(conv) < 0.5)
 
-    # Block-level early exit: once every patch in the block is frozen
-    # (policing in compat mode, policing+convergence in fixed mode) no
-    # state can change, so stop iterating.  Output-identical to the
-    # fixed trip count; decisive for the reference's 1000-iteration
-    # default where most patches police out early.  Gated on the trip
-    # count: wrapping the unrolled sampling body in ``while_loop``
-    # inflates Mosaic compile time by minutes, which only pays off when
-    # the loop is long.
-    if n_iters > 64:
-        def wcond(state):
-            i, _, _, _, conv = state
-            return (i < n_iters) & (jnp.min(conv) < 0.5)
+    # Initial resample (patch.cpp:119-154): an OOB start freezes the
+    # patch with the raw template as its query (quirk, patch.cpp:136).
+    q0 = jnp.where((conv0 > 0.5)[:, None], load_tpl(t_ref), sample(sx, sy))
+    # Per-block early exit: once every patch of the block is frozen no
+    # state can change, so stopping is output-identical to the full
+    # trip count.
+    _, ux, uy, q, conv = jax.lax.while_loop(
+        cond, body, (jnp.int32(0), iux, iuy, q0, conv0))
 
-        def wbody(state):
-            i, ux, uy, q, conv = state
-            ux, uy, q, conv = body(i, (ux, uy, q, conv))
-            return i + 1, ux, uy, q, conv
-
-        _, ux, uy, q, conv = lax.while_loop(
-            wcond, wbody, (0, iux + 0.0, iuy + 0.0, q0, conv0 + 0.0))
-    elif n_iters <= _ITER_UNROLL:
-        # Fully Python-unrolled iteration chain: same instructions in
-        # the same order (sequentially dependent, unlike the extraction
-        # kernel's independent per-patch chains), but no loop-carry
-        # materialization per trip.  A/B'd on chip round 5 — see the
-        # _ITER_UNROLL note.
-        state = (iux + 0.0, iuy + 0.0, q0, conv0 + 0.0)
-        for i in range(n_iters):
-            state = body(i, state)
-        ux, uy, q, conv = state
-    else:
-        ux, uy, q, conv = lax.fori_loop(
-            0, n_iters, body, (iux + 0.0, iuy + 0.0, q0, conv0 + 0.0))
-
-    u_ref[0, 0:1, :] = ux
-    u_ref[0, 1:2, :] = uy
-    q_ref[0, :, :] = q
-    conv_ref[0, 0:1, :] = conv
+    plgpu.store(u_ref.at[g], ux)
+    plgpu.store(u_ref.at[total + g], uy)
+    plgpu.store(q_ref.at[toff], q)
+    plgpu.store(conv_ref.at[g], conv)
 
 
-def search_padding(n: int, block: int = None) -> Tuple[int, int]:
-    """(block, npad) the search kernel uses for ``n`` patches.
-
-    Exposed so the extraction kernel can emit its output already padded
-    to ``npad`` — otherwise the [N, R, R] regions array pays a full
-    slice-to-N plus re-pad round trip between the two kernels (measured
-    3.1 ms at 1080p in the round-2 device trace, pure waste)."""
-    import os as _os
-
-    if block is None:
-        # Round-3 chip A/B (PERF_NOTES): 128 > 256 > 512 end-to-end
-        # (14.3 / 15.6 / 16.2 ms per 1080p DIS-fast frame, bitwise
-        # identical).  More grid steps pipeline the per-block DMAs
-        # against compute, and the one-lane-tile block eliminates
-        # padding waste at the small coarse-scale grids (the "three
-        # small-grid launches at ~2.6x worse per-patch efficiency" in
-        # ROOFLINE.md was mostly this).
-        block = int(_os.environ.get("DIS_TPU_BLOCK", "128"))
-    # one lane tile is the floor: patches ride the lane dim, so a
-    # smaller block under-fills every vector op AND breaks the
-    # extraction kernel's 128-multiple padded-output contract
-    # (found round 5: DIS_TPU_BLOCK=64 tripped its pad_to assert).
-    block = max(block, 128)
-    block = min(block, max(128, 128 * (-(-n // 128))))
-    nb = -(-n // block)
-    return block, nb * block
+def _search_call(pairs: int, npad: int, img_shape, cfg: DISConfig,
+                 width: int, height: int, interpret: bool, vma=frozenset()):
+    """pallas_call over ``pairs`` independent (plane, patch set) pairs,
+    each padded to ``npad`` patches; all pairs share one launch.  ``vma``
+    (the mesh axes the inputs vary over under ``shard_map``) types the
+    outputs."""
+    ps = cfg.patch_size
+    block, taps = search_block(ps)
+    nb = npad // block
+    total = pairs * npad
+    tmp_h, tmp_w = img_shape
+    kernel = functools.partial(
+        _kernel, block=block, taps=taps, nb=nb, total=total,
+        plane=tmp_h * tmp_w, tmp_h=tmp_h, tmp_w=tmp_w,
+        n_iters=cfg.iterations + 1, ps=ps, pad=cfg.img_padding,
+        lb=-float(ps) / 2.0, ub_w=float(width + ps // 2 - 2),
+        ub_h=float(height + ps // 2 - 2), thresh=float(cfg.outlier_thresh),
+        normalize=cfg.patch_normalization, fixed=cfg.mode == "fixed",
+        conv_eps=cfg.conv_eps)
+    f32 = jnp.float32
+    return pl.pallas_call(
+        kernel,
+        grid=(pairs * nb,),
+        out_shape=(jax.ShapeDtypeStruct((2 * total,), f32, vma=vma),
+                   jax.ShapeDtypeStruct((total * taps,), f32, vma=vma),
+                   jax.ShapeDtypeStruct((total,), f32, vma=vma)),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=_NUM_WARPS,
+                                             num_stages=1),
+        interpret=interpret,
+        name="iclk_search",
+    )
 
 
 def inverse_search_pallas(
-    regions: jnp.ndarray,     # [N, R, R] from ops.iclk.extract_regions
-    base_y: jnp.ndarray, base_x: jnp.ndarray,
-    T: jnp.ndarray, Tdx: jnp.ndarray, Tdy: jnp.ndarray,  # [N, ps*ps]
-    Hinv: jnp.ndarray,        # [N, 2, 2]
-    centers: jnp.ndarray, init_u: jnp.ndarray,
-    conv0: jnp.ndarray,
-    cfg: DISConfig, width: int, height: int, row0: int = 0,
-    block: int = None, interpret: bool = False,
+    img2: jnp.ndarray,                      # [Hp, Wp] padded level plane
+    T: jnp.ndarray, Tdx: jnp.ndarray, Tdy: jnp.ndarray,
+    Tn: jnp.ndarray,                        # [N, ps*ps] (Tn: fixed mode)
+    Hinv: jnp.ndarray,                      # [N, 2, 2]
+    centers: jnp.ndarray, init_u: jnp.ndarray, conv0: jnp.ndarray,
+    cfg: DISConfig, width: int, height: int, row0=0,
+    interpret: bool = False,
 ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
-    """Run the fused iteration kernel; returns (u [N,2], Q [N,ps*ps], conv [N])."""
-    from ..iclk import region_shape
+    """Run the fused search; returns (u [N,2], Q [N,ps*ps], conv [N]).
 
-    import os as _os
-
-    ps = cfg.patch_size
-    rr, rc = region_shape(ps)
-    assert regions.shape[1:] == (rr, rc), regions.shape
+    ``row0`` (the stripe's first padded-plane row; may be traced) enters
+    only as per-patch data, so one program serves every stripe of the
+    tiled engine.  Under ``jax.vmap`` the pair batch folds into the
+    launch grid (one launch for all pairs, per-pair results unchanged).
+    ``interpret`` exists for the CPU tests only.
+    """
     n = centers.shape[0]
-    block, npad = search_padding(n, block)
-    nb = npad // block
+    ps = cfg.patch_size
+    block, taps = search_block(ps)
+    npad = -(-n // block) * block
 
-    def padn(x, fill=0.0):
-        pad_width = [(0, npad - n)] + [(0, 0)] * (x.ndim - 1)
-        return jnp.pad(x, pad_width, constant_values=fill)
+    def padn(x):
+        return jnp.pad(x, [(0, npad - n)] + [(0, 0)] * (x.ndim - 1))
 
-    # Regions may arrive already padded to npad (extraction emits them
-    # that way when the block geometries line up — no HBM round trip).
-    if regions.shape[0] == npad:
-        regions_p = regions
-    elif regions.shape[0] == n:
-        regions_p = padn(regions)
-    else:
-        raise ValueError(
-            f"regions count {regions.shape[0]} matches neither n={n} "
-            f"nor npad={npad}")
-
-    pos0 = centers + init_u
-    # Bases in CEIL coordinates (see M_BX/M_BY note): the padded-plane
-    # offsets fold into the meta, so the kernel itself never sees
-    # pad/row0 — row0 may be a traced scalar (deduped tiled switch).
+    yoff = jnp.broadcast_to(
+        jnp.asarray(cfg.img_padding - row0, jnp.float32), (n,))
     meta = jnp.stack([
         Hinv[:, 0, 0], Hinv[:, 0, 1], Hinv[:, 1, 1],
-        init_u[:, 0], init_u[:, 1],
-        pos0[:, 0], pos0[:, 1],
-        centers[:, 0], centers[:, 1],
-        (base_x - cfg.img_padding).astype(jnp.float32),
-        (base_y - (cfg.img_padding - row0)).astype(jnp.float32),
-        conv0.astype(jnp.float32),
-    ], axis=0)                                   # [M_ROWS, N]
-    meta = padn(meta.T, 0.0).T
-    # padded dummy patches: mark converged so they never move/sample
-    if npad > n:
-        pad_mask = jnp.arange(npad) >= n
-        meta = meta.at[M_CONV0].set(jnp.where(pad_mask, 1.0, meta[M_CONV0]))
-
-    # transpose to [nb, K, block] lane layout
-    def blk(x_t):  # x_t: [K, npad] -> [nb, K, block]
-        k = x_t.shape[0]
-        return x_t.reshape(k, nb, block).transpose(1, 0, 2)
-
-    meta_b = blk(meta)
-    tdx_b = blk(padn(Tdx).T)
-    tdy_b = blk(padn(Tdy).T)
-    traw_b = blk(padn(T).T)
-    if _REG_LAYOUT == "inkernel":
-        # free reshape: the kernel relayouts per block on the MXU
-        reg_b = regions_p.reshape(nb, block, rr * rc)
-    elif _REG_LAYOUT == "4d":
-        reg_b = regions_p.reshape(nb, block, rr, rc).transpose(0, 2, 3, 1)
-    elif _REG_LAYOUT == "mxu":
-        # Contract the patch dim against a block-size identity on the
-        # MXU instead of a VPU/copy relayout.  Bit-exact ONLY at
-        # HIGHEST precision (bf16x3 passes: 1.0/0.0 are exact and the
-        # hi/mid/lo split of x re-sums exactly in the f32 accumulator);
-        # the DEFAULT precision lowers to one bf16 pass that truncates
-        # every region value — visible in the round-2 device trace as a
-        # bf16 reshape feeding the dot.  CPU tests cannot catch this
-        # (CPU ignores precision), so the precision here is load-bearing.
-        lhs = regions_p.reshape(nb, block, rr * rc)
-        eye = jnp.eye(block, dtype=jnp.float32)
-        reg_b = jax.lax.dot_general(
-            lhs, eye, (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=lax.Precision.HIGHEST,
-        ).reshape(nb, rr, rc, block)
-    else:
-        # Plain 2-D transpose, then a major-dim swap whose minor dim
-        # (block lanes) stays contiguous; reshapes are free.
-        reg_b = (regions_p.reshape(npad, rr * rc).T
-                 .reshape(rr * rc, nb, block).transpose(1, 0, 2)
-                 .reshape(nb, rr, rc, block))
-
-    fixed = cfg.mode == "fixed"
-    tn_b = None
-    if fixed:
-        Tn = T
-        if cfg.patch_normalization:
-            from ..iclk import pairwise_sum
-            Tn = T - pairwise_sum(T)[:, None] * jnp.float32(1.0 / (ps * ps))
-        tn_b = blk(padn(Tn).T)
-
-    kernel = functools.partial(
-        _iclk_kernel,
-        n_iters=cfg.iterations + 1, ps=ps, rr=rr, rc=rc,
-        lb=-float(ps) / 2.0, ub_w=float(width + ps // 2 - 2),
-        ub_h=float(height + ps // 2 - 2), thresh=float(cfg.outlier_thresh),
-        normalize=cfg.patch_normalization, fixed=fixed,
-        conv_eps=cfg.conv_eps, sampler=_SAMPLER, reg_layout=_REG_LAYOUT,
-    )
-
-    reg_spec = (pl.BlockSpec((1, block, rr * rc), lambda i: (i, 0, 0),
-                             memory_space=pltpu.VMEM)
-                if _REG_LAYOUT == "inkernel" else
-                pl.BlockSpec((1, rr, rc, block), lambda i: (i, 0, 0, 0),
-                             memory_space=pltpu.VMEM))
-    in_specs = [
-        pl.BlockSpec((1, M_ROWS, block), lambda i: (i, 0, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, ps * ps, block), lambda i: (i, 0, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, ps * ps, block), lambda i: (i, 0, 0),
-                     memory_space=pltpu.VMEM),
-        reg_spec,
-        pl.BlockSpec((1, ps * ps, block), lambda i: (i, 0, 0),
-                     memory_space=pltpu.VMEM),
-    ]
-    args = [meta_b, tdx_b, tdy_b, reg_b, traw_b]
-    if fixed:
-        in_specs.append(pl.BlockSpec((1, ps * ps, block), lambda i: (i, 0, 0),
-                                     memory_space=pltpu.VMEM))
-        args.append(tn_b)
-
-    def kern(*refs):
-        if fixed:
-            meta_r, tdx_r, tdy_r, reg_r, traw_r, tn_r, u_r, q_r, c_r = refs
-        else:
-            meta_r, tdx_r, tdy_r, reg_r, traw_r, u_r, q_r, c_r = refs
-            tn_r = None
-        kernel(meta_r, tdx_r, tdy_r, reg_r, traw_r, u_r, q_r, c_r, tn_ref=tn_r)
-
-    def make_call(nblocks):
-        return pl.pallas_call(
-            kern,
-            grid=(nblocks,),
-            in_specs=in_specs,
-            out_specs=(
-                pl.BlockSpec((1, 2, block), lambda i: (i, 0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, ps * ps, block), lambda i: (i, 0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, 1, block), lambda i: (i, 0, 0),
-                             memory_space=pltpu.VMEM),
-            ),
-            out_shape=(
-                jax.ShapeDtypeStruct((nblocks, 2, block), jnp.float32),
-                jax.ShapeDtypeStruct((nblocks, ps * ps, block), jnp.float32),
-                jax.ShapeDtypeStruct((nblocks, 1, block), jnp.float32),
-            ),
-            interpret=interpret,
-        )
+        init_u[:, 0], init_u[:, 1], centers[:, 0], centers[:, 1],
+        conv0.astype(jnp.float32), yoff,
+    ], axis=0)                                      # [M_ROWS, N]
+    # padded dummy patches start frozen: they never move or sample
+    meta = jnp.pad(meta, [(0, 0), (0, npad - n)])
+    meta = meta.at[M_CONV0].set(jnp.where(jnp.arange(npad) >= n, 1.0,
+                                          meta[M_CONV0]))
+    tpls = [jnp.pad(x, [(0, npad - n), (0, taps - ps * ps)])
+            for x in (T, Tdx, Tdy, Tn)]
+    img_shape = img2.shape
 
     @jax.custom_batching.custom_vmap
-    def run(*args_):
-        return make_call(nb)(*args_)
+    def run(img, meta_p, *tpl_p):                   # leading pair axis P
+        pairs = img.shape[0]
+        meta_f = meta_p.transpose(1, 0, 2).reshape(-1)  # [M, P*npad]
+        ins = [img.reshape(-1), meta_f, *(t.reshape(-1) for t in tpl_p)]
+        # under shard_map every operand and result must vary over the
+        # same mesh axes (replicated grid constants meet per-device data)
+        vma = frozenset().union(*(jax.typeof(x).vma for x in ins))
+        ins = [x if jax.typeof(x).vma == vma
+               else jax.lax.pcast(x, tuple(vma - jax.typeof(x).vma),
+                                  to="varying") for x in ins]
+        u, q, conv = _search_call(pairs, npad, img_shape, cfg, width,
+                                  height, interpret, vma)(*ins)
+        return (u.reshape(2, pairs, npad).transpose(1, 0, 2),
+                q.reshape(pairs, npad, taps),
+                conv.reshape(pairs, npad))
 
     @run.def_vmap
-    def _run_vmap(axis_size, in_batched, *bargs):
-        # Patch blocks are fully independent, so a batch of pairs folds
-        # into the block grid: ONE kernel launch for all pairs instead
-        # of the lax.map a sequential_vmap would emit (which serializes
-        # the kernels per pair — measured 20 -> 24 ms/pair at 1080p).
-        # Per-block outputs are bit-identical to per-pair runs.
+    def _run_vmap(axis_size, in_batched, *args):
+        # Patch blocks are independent, so a batch of pairs folds into
+        # the launch grid instead of a per-pair loop of launches.
         def fold(x, b):
             if not b:
                 x = jnp.broadcast_to(x[None], (axis_size,) + x.shape)
             return x.reshape((axis_size * x.shape[1],) + x.shape[2:])
 
-        outs = make_call(axis_size * nb)(
-            *(fold(x, b) for x, b in zip(bargs, in_batched)))
-        outs = tuple(o.reshape((axis_size, nb) + o.shape[1:]) for o in outs)
-        return outs, (True, True, True)
+        outs = run(*(fold(x, b) for x, b in zip(args, in_batched)))
+        return (tuple(o.reshape((axis_size, -1) + o.shape[1:]) for o in outs),
+                (True, True, True))
 
-    u_b, q_b, conv_b = run(*args)
-
-    u = u_b.transpose(0, 2, 1).reshape(npad, 2)[:n]
-    q = q_b.transpose(0, 2, 1).reshape(npad, ps * ps)[:n]
-    conv = conv_b.transpose(0, 2, 1).reshape(npad)[:n] > 0.5
-    return u, q, conv
+    u, q, conv = run(img2[None], meta[None], *(t[None] for t in tpls))
+    return u[0, :, :n].T, q[0, :n, :ps * ps], conv[0, :n] > 0.5

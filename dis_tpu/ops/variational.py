@@ -12,11 +12,11 @@ this step entirely (``/root/reference/README.md:11``: "We skip step Fast
 Variational refinement"); it is reinstated here because BASELINE.json's
 north star requires it.
 
-TPU-native formulation: IRLS outer iterations (warp + lagged robust
+Formulation: IRLS outer iterations (warp + lagged robust
 weights) with red-black Gauss-Seidel inner sweeps.  Red-black updates
 are expressed as dense masked updates over the full grid — two masked
 half-sweeps per iteration — which keeps every step a fused elementwise
-stencil, ideal for the VPU; no scatter, no data-dependent control flow.
+stencil; no scatter, no data-dependent control flow.
 
 Structure knobs (cfg): ``refinement_iters`` outer warps /
 re-linearizations; per warp, ``refinement_inner_sweeps`` lagged
@@ -40,19 +40,19 @@ from jax import lax
 from ..config import DISConfig
 from . import image as im
 
-# Warp gather formulation (bit-identical tap values; A/B on chip):
-#   take4  — four C-wide row takes (round-2 shipped path).
+# Warp gather formulation (bit-identical tap values):
+#   take4  — four C-wide row takes.
 #   take2  — two gathers of [2, C] row-pair slices from width+1
 #            replicate-padded planes (x1 = x0+1 always valid, so the
 #            right-edge clamp folds into the padding).  Halves the
-#            gather rows; TPU gather cost scales with rows, not bytes.
+#            gather rows.
 #   slice1 — one gather of [2, 2, C] corner slices from (H+1, W+1)
 #            replicate-padded planes.
 _WARP = os.environ.get("DIS_TPU_WARP", "take4")
 
 # Python-unroll refinement loops whose trip count is at most this bound
 # (default covers every preset: DIS_FULL is 1 outer x 10 inner).  The
-# round-3 bisect (PERF_NOTES.md) showed lax.scan is the one construct
+# round-3 bisect showed lax.scan is the one construct
 # that breaks bitwise tiled==untiled parity: XLA compiles a scan BODY
 # with context-dependent fma/fusion choices, so the identical refinement
 # jaxpr produces ulp-different flow inside an SPMD-partitioned module vs
@@ -93,16 +93,10 @@ def _warp_bilinear(planes: jnp.ndarray, flow: jnp.ndarray) -> Tuple[jnp.ndarray,
     the gather indices is ~6x cheaper than per-plane warps).
     Returns (warped [H, W, C], in_bounds [H, W]).
 
-    Formulation note (measured on v5e, Sintel size, inside the outer
-    scan): four C-wide takes is the FASTEST known XLA gather shape for
-    this warp — 6.2 ms/warp vs 12.9 ms for one corner-packed [H*W, 4C]
-    take, 11.6 ms for two half-packed [2*H*W, 2C] takes, and 25.6 ms
-    for per-channel 1-D takes.  (An isolated packed-take microbenchmark
-    shows 2.4 ms, but only because closure-constant flow lets XLA
-    constant-fold the indices — do not trust it.)  The refinement is
-    warp-bound: 50 red-black sweeps cost ~3 ms total while each outer
-    warp costs ~6 ms, which is why the presets favor few outers with
-    many inner sweeps.
+    Formulation note: four C-wide takes share one set of indices;
+    ``DIS_TPU_WARP`` selects the bit-identical alternatives.  (An
+    isolated packed-take microbenchmark misleads when closure-constant
+    flow lets XLA constant-fold the indices.)
     """
     h, w, c = planes.shape
     ys, xs = jnp.mgrid[0:h, 0:w]
@@ -226,8 +220,7 @@ def variational_refinement(img1_padded: jnp.ndarray, img2_padded: jnp.ndarray,
             # gradient-averaging linearization of the DIS authors' own
             # OpenCV VariationalRefinement (prepareBuffers computes Ix =
             # 0.5*(dI0 + d warped I1), Iz = warped - I0, Izx = d(Iz)).
-            # 1/6th the gather work of the six-plane warp; the warp is
-            # the dominant refinement cost on TPU (PERF_NOTES.md).
+            # 1/6th the gather work of the six-plane warp.
             warped, inb = _warp_bilinear(planes, flow)
             W = warped[..., 0]
             Wxr = im.sobel3(W, "x")

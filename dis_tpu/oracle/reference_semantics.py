@@ -3,7 +3,7 @@
 This module is the *contract* for the JAX/Pallas implementation: a
 straightforward, dependency-free (NumPy-only) re-statement of what the
 reference C++ computes, including its quirk ledger (SURVEY.md §2 Q1-Q10).
-It is deliberately slow and simple; tests compare the TPU pipeline
+It is deliberately slow and simple; tests compare the JAX pipeline
 against it on small inputs, and separately validate its OpenCV-exact
 claims against ``cv2`` where available.
 

@@ -142,4 +142,6 @@ def scaling_report(cfg=None, h: int = 128, w: int = 160,
             "pairs_per_sec": round(tp, 3),
             "efficiency": round(tp / (base * c), 4),
         })
-    return {"platform": jax.default_backend(), "rows": rows}
+    from ..backend import platform
+
+    return {"platform": platform(), "rows": rows}

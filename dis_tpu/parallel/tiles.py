@@ -110,7 +110,7 @@ def _refine_full(img1: jnp.ndarray, img2: jnp.ndarray, flow: jnp.ndarray,
     runs it: on the finest-scale pyramid images (quirk-Q1 planes), or on
     the intensity chain when ``cfg.refinement_planes == "intensity"``."""
     from ..models.dis import build_refinement_planes
-    from ..ops.pyramid import construct_pyramid_auto
+    from ..ops.pyramid import construct_pyramid
     from ..ops.variational import variational_refinement
 
     s = cfg.finest_scale
@@ -118,10 +118,8 @@ def _refine_full(img1: jnp.ndarray, img2: jnp.ndarray, flow: jnp.ndarray,
     if planes is not None:
         return variational_refinement(planes[0][s], planes[1][s], flow,
                                       cfg, pad=0)
-    pyr1 = construct_pyramid_auto(img1, cfg.coarsest_scale,
-                                  cfg.img_padding, cfg.kernel)
-    pyr2 = construct_pyramid_auto(img2, cfg.coarsest_scale,
-                                  cfg.img_padding, cfg.kernel)
+    pyr1 = construct_pyramid(img1, cfg.coarsest_scale, cfg.img_padding)
+    pyr2 = construct_pyramid(img2, cfg.coarsest_scale, cfg.img_padding)
     return variational_refinement(pyr1[s].img, pyr2[s].img, flow, cfg)
 
 
@@ -161,13 +159,11 @@ def grid_tiled_flow(img1: jnp.ndarray, img2: jnp.ndarray, cfg: DISConfig,
         raise ValueError(f"cannot split {h >> cfg.finest_scale} output "
                          f"rows into {n_parts} parts")
     from ..models.dis import build_refinement_planes
-    from ..ops.pyramid import construct_pyramid_auto
+    from ..ops.pyramid import construct_pyramid
     from ..ops.variational import variational_refinement
 
-    pyr1 = construct_pyramid_auto(img1, cfg.coarsest_scale,
-                                  cfg.img_padding, cfg.kernel)
-    pyr2 = construct_pyramid_auto(img2, cfg.coarsest_scale,
-                                  cfg.img_padding, cfg.kernel)
+    pyr1 = construct_pyramid(img1, cfg.coarsest_scale, cfg.img_padding)
+    pyr2 = construct_pyramid(img2, cfg.coarsest_scale, cfg.img_padding)
     planes = build_refinement_planes(img1, img2, cfg)
     flow = None
     for scale in range(cfg.coarsest_scale, cfg.finest_scale - 1, -1):
@@ -234,7 +230,7 @@ def grid_tiled_flow_fn(cfg: DISConfig, mesh: Mesh, height: int, width: int,
     flow, and refinement runs replicated on the full frame exactly as
     the untiled pipeline.  Output equals ``dis_flow_padded`` everywhere.
     """
-    from ..ops.pyramid import construct_pyramid_auto
+    from ..ops.pyramid import construct_pyramid
     from ..ops.variational import variational_refinement
 
     n = mesh.shape[axis]
@@ -253,10 +249,8 @@ def grid_tiled_flow_fn(cfg: DISConfig, mesh: Mesh, height: int, width: int,
         idx = lax.axis_index(axis)
         f1 = lax.all_gather(i1, axis, axis=0, tiled=True)
         f2 = lax.all_gather(i2, axis, axis=0, tiled=True)
-        pyr1 = construct_pyramid_auto(f1, cfg.coarsest_scale,
-                                      cfg.img_padding, cfg.kernel)
-        pyr2 = construct_pyramid_auto(f2, cfg.coarsest_scale,
-                                      cfg.img_padding, cfg.kernel)
+        pyr1 = construct_pyramid(f1, cfg.coarsest_scale, cfg.img_padding)
+        pyr2 = construct_pyramid(f2, cfg.coarsest_scale, cfg.img_padding)
         planes = build_refinement_planes(f1, f2, cfg)
         flow = None
         for scale in range(cfg.coarsest_scale, cfg.finest_scale - 1, -1):

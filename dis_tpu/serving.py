@@ -3,22 +3,24 @@
 The reference's only deployment story is re-running its CLI binary per
 sequence (``/root/reference/src/main.cpp:102-209``): every launch pays
 process startup, and a JAX port would additionally pay trace+compile
-(~20-40 s on TPU) before the first frame.  This module gives the TPU
-build a production serving path:
+before the first frame.  This module gives the build a production
+serving path:
 
 - :func:`aot_compile` — ahead-of-time compile a fixed-shape flow
   executable once (``jax.jit(...).lower(...).compile()``); callers get a
   :class:`CompiledFlow` that never retraces and exposes the compiler's
   own FLOP/memory cost analysis.
-- :func:`export_flow` / :func:`load_exported` — serialize the lowered
-  computation with ``jax.export`` (versioned StableHLO) so a serving
-  process can load and run it with **no Python tracing at all**, or a
-  fleet can ship one artifact to many identical workers.  Artifacts are
-  platform-tagged: a TPU export embeds the Mosaic (Pallas) kernels and
-  only loads on TPU; a CPU export uses the pure-XLA path.
+- :func:`export_flow` / :func:`save_exported` / :func:`load_exported` —
+  export the lowered computation with ``jax.export`` (StableHLO) and
+  serialize it, so a serving process can load and run it with **no
+  Python tracing at all**, or a fleet can ship one artifact to many
+  identical workers.  An artifact
+  targets the platform it was exported on and lowers the same search
+  that :func:`aot_compile` runs there: a GPU export embeds the
+  Pallas-Triton search kernel, a CPU export is pure XLA.
 
 Shapes are static by design — XLA serving wants one program per shape
-bucket, exactly like production TPU inference stacks.  Arbitrary input
+bucket.  Arbitrary input
 sizes are handled by the divisibility pad/crop inside
 :func:`~dis_tpu.models.dis.dis_flow`, so one bucket serves every frame
 of a fixed-resolution stream.
@@ -31,7 +33,7 @@ artifact on synthetic frames and prints timing).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -97,51 +99,71 @@ def aot_compile(cfg: DISConfig, height: int, width: int,
 
     Pays the trace+compile cost now (once), not on the first served
     request.  ``batch=None`` compiles the single-pair [H,W] program;
-    ``batch=B`` the vmapped [B,H,W] program (the Pallas kernels fold the
-    batch into their grids via their ``custom_vmap`` rules).
+    ``batch=B`` the vmapped [B,H,W] program (the search kernel folds the
+    batch into its launch grid via its ``custom_vmap`` rule).
     """
     fn = jax.jit(_flow_fn(cfg, batch))
     lowered = fn.lower(*_arg_structs(height, width, batch))
     return CompiledFlow(lowered.compile(), height, width, batch, cfg)
 
 
-def export_flow(cfg: DISConfig, height: int, width: int,
-                batch: Optional[int] = None,
-                platforms: Optional[Sequence[str]] = None) -> bytes:
-    """Serialize the flow program to a ``jax.export`` artifact (bytes).
+# The Pallas-Triton search kernel lowers to this custom call; jax.export
+# does not list it as stable because Triton IR carries no compatibility
+# guarantee across versions.
+_TRITON_CALL = "__gpu$xla.gpu.triton"
 
-    ``platforms`` defaults to the current backend; pass e.g.
-    ``("tpu",)`` explicitly to cross-lower.  The artifact replays under
-    jax.export's compatibility guarantees without re-tracing Python.
+
+def export_flow(cfg: DISConfig, height: int, width: int,
+                batch: Optional[int] = None) -> jax.export.Exported:
+    """Export the flow program with ``jax.export`` (in memory).
+
+    The artifact targets the platform this process runs on and lowers
+    the same search :func:`aot_compile` runs there.  On the GPU it embeds
+    the Triton search kernel, whose custom call jax.export does not
+    guarantee stable: the one check that refuses it is disabled here, so
+    a GPU artifact is tied to the JAX version that exported it (load it
+    with the same version).  A CPU artifact carries only StableHLO and
+    replays under jax.export's compatibility guarantees.
+    ``Exported.serialize()`` (used by :func:`save_exported`) needs JAX's
+    optional ``flatbuffers`` dependency; running an in-memory artifact
+    does not.
     """
+    from .backend import platform
+
     fn = jax.jit(_flow_fn(cfg, batch))
-    exp = jax.export.export(fn, platforms=platforms)(
+    checks = ([jax.export.DisabledSafetyCheck.custom_call(_TRITON_CALL)]
+              if platform() == "gpu" else [])
+    return jax.export.export(fn, disabled_checks=checks)(
         *_arg_structs(height, width, batch))
-    return exp.serialize()
 
 
 def save_exported(path: str, cfg: DISConfig, height: int, width: int,
-                  batch: Optional[int] = None,
-                  platforms: Optional[Sequence[str]] = None) -> None:
-    data = export_flow(cfg, height, width, batch, platforms)
+                  batch: Optional[int] = None) -> None:
+    """Serialize :func:`export_flow`'s artifact to ``path``."""
+    data = export_flow(cfg, height, width, batch).serialize()
     with open(path, "wb") as f:
         f.write(data)
 
 
-def load_exported(path_or_bytes):
-    """Load a serialized artifact; returns ``fn(img1, img2) -> flow``.
+def load_exported(artifact):
+    """Load an artifact — an in-memory ``jax.export.Exported``, its
+    serialized bytes, or a file path; returns ``(fn, exported)`` with
+    ``fn(img1, img2) -> flow``.
 
     The returned callable runs the embedded StableHLO via
     ``jax.export``'s calling convention (jittable, no Python tracing of
     the pipeline itself).  Must be loaded on a platform the artifact
     was lowered for.
     """
-    if isinstance(path_or_bytes, (bytes, bytearray)):
-        data = bytes(path_or_bytes)
+    if isinstance(artifact, jax.export.Exported):
+        exp = artifact
     else:
-        with open(path_or_bytes, "rb") as f:
-            data = f.read()
-    exp = jax.export.deserialize(bytearray(data))
+        if isinstance(artifact, (bytes, bytearray)):
+            data = bytes(artifact)
+        else:
+            with open(artifact, "rb") as f:
+                data = f.read()
+        exp = jax.export.deserialize(bytearray(data))
 
     def run(img1, img2):
         return exp.call(jnp.asarray(img1, jnp.float32),
@@ -172,6 +194,9 @@ def main(argv=None) -> int:
     rn.add_argument("--reps", type=int, default=3)
     args = ap.parse_args(argv)
 
+    from .backend import setup_compile_cache
+
+    setup_compile_cache()
     if args.cmd == "export":
         h, w = _parse_size(args.size)
         cfg = dataclasses.replace(PRESETS[args.preset], mode=args.mode)

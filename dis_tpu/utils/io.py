@@ -2,9 +2,10 @@
 
 ``cv::imread(..., CV_LOAD_IMAGE_GRAYSCALE)`` (main.cpp:115-116) decodes
 to BGR then converts with OpenCV's fixed-point BT.601 weights.  We
-decode with PIL/imageio (no OpenCV dependency at runtime) and apply the
-same fixed-point conversion so pixel values match the reference bit for
-bit on 8-bit inputs.
+decode PNG with the native decoder (tools/native_io) or the package's
+own NumPy + zlib codec (utils/png.py), with no imaging library, and
+apply the same fixed-point conversion so pixel values match the
+reference bit for bit on 8-bit inputs.
 """
 
 from __future__ import annotations
@@ -23,51 +24,31 @@ def rgb_to_gray_u8(rgb: np.ndarray) -> np.ndarray:
 
 
 def imread_gray(path: str) -> np.ndarray:
-    """Load an image as uint8 grayscale with OpenCV-matching conversion.
+    """Load an 8-bit PNG as uint8 grayscale with OpenCV-matching
+    conversion: the native C++ decoder when it is built, else
+    utils/png.py.  Gray(+alpha) keeps its gray channel; RGB(A) converts
+    with :func:`rgb_to_gray_u8`."""
+    from . import native, png
 
-    Uses the native C++ decoder (tools/native_io) when available; falls
-    back to PIL/imageio + the same fixed-point conversion.
-    """
-    if path.lower().endswith(".png"):
-        from . import native
-
-        if native.available():
-            with open(path, "rb") as f:
-                out = native.png_decode_gray(f.read())
-            if out is not None:
-                return out
-    try:
-        from PIL import Image
-
-        with Image.open(path) as img:
-            if img.mode in ("L", "I;16"):
-                arr = np.asarray(img.convert("L"))
-                return arr.astype(np.uint8)
-            arr = np.asarray(img.convert("RGB"))
-            return rgb_to_gray_u8(arr)
-    except ImportError:
-        pass
-    import imageio.v3 as iio
-
-    arr = iio.imread(path)
-    if arr.ndim == 2:
-        return arr.astype(np.uint8)
+    if native.available():
+        with open(path, "rb") as f:
+            out = native.png_decode_gray(f.read())
+        if out is not None:
+            return out
+    arr = png.read_png(path)
+    if arr.dtype != np.uint8:
+        raise ValueError(f"{path}: expected an 8-bit image")
+    if arr.shape[-1] <= 2:
+        return np.ascontiguousarray(arr[..., 0])
     return rgb_to_gray_u8(arr[..., :3])
 
 
 def imwrite(path: str, img: np.ndarray) -> None:
-    """Write a uint8 image (BGR [H,W,3] like the colorizer output, or
-    grayscale)."""
-    out = img
-    if img.ndim == 3 and img.shape[-1] == 3:
-        out = img[..., ::-1]  # BGR -> RGB for PIL
-    try:
-        from PIL import Image
+    """Write a uint8 image as PNG: BGR [H,W,3] like the colorizer
+    output (stored as RGB), or grayscale [H,W]."""
+    from . import png
 
-        Image.fromarray(out).save(path)
-        return
-    except ImportError:
-        pass
-    import imageio.v3 as iio
-
-    iio.imwrite(path, out)
+    out = np.asarray(img, np.uint8)
+    if out.ndim == 3:
+        out = out[..., ::-1]  # BGR -> RGB
+    png.write_png(path, out)

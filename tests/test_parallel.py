@@ -5,7 +5,7 @@ runs; tiled == untiled; sequence-sharded == serial pair loop.
 
 Round-3 upgrade: every tiled mode is BITWISE equal to the untiled
 pipeline (assert_array_equal, not allclose).  Two compiler-context
-effects had to be fenced to get here (PERF_NOTES.md round 3):
+effects had to be fenced to get here:
 the pyramid is an optimization_barrier fusion island (XLA's
 consumer-shaped fusion gave the same pyramid math ulp-different
 outputs inside SPMD modules), and the variational refinement unrolls
@@ -301,22 +301,17 @@ def test_sequence_pair_sharded_no_dummy_slot():
 @pytest.mark.parametrize("mode", ["compat", "fixed"])
 @pytest.mark.slow
 def test_vmap_pipeline_matches_per_element(mode):
-    """jax.vmap over the full Pallas pipeline (single-chip batched
-    pairs, suite config 3b) must equal per-element runs bitwise.  The
-    custom vmap rules locked in here: the search kernel FOLDS the pair
-    batch into its block grid (independent patch blocks, one launch for
-    all pairs) and the whole-image extraction kernel runs a pair-major
-    batched grid with a per-pair image DMA (a sequential lax.map
-    re-copies the [B, N, R, R] regions buffer every iteration —
-    measured as the whole cost of the round-2 batch regression).  Only
-    the column-banded 4K extraction stays sequential under vmap.
+    """jax.vmap over the full pipeline (single-device batched pairs,
+    suite config 3b) must equal per-element runs.  On the card the
+    search kernel folds the pair batch into its launch grid, and
+    chip_smoke.py phase 5 checks this gate bitwise there.
 
     Uses the file's EAGER-pinned dis_flow_padded (a local re-import
     would pick up conftest's top-level auto-jit wrapper, making the
     per-element reference a differently-fused whole-program compile —
     see the pin note at the top of this file)."""
     cfg = DISConfig(iterations=5, coarsest_scale=2, patch_overlap=0.5,
-                    kernel="pallas", mode=mode, early_exit=False)
+                    mode=mode, early_exit=False)
     r = np.random.default_rng(3)
     a = jnp.asarray((r.random((2, 48, 64)) * 255).astype(np.float32))
     b = jnp.asarray((r.random((2, 48, 64)) * 255).astype(np.float32))
@@ -327,15 +322,11 @@ def test_vmap_pipeline_matches_per_element(mode):
     out = np.asarray(jax.vmap(f)(a, b))
     ref = np.stack([np.asarray(f(a[i], b[i])) for i in range(2)])
     if jax.default_backend() == "cpu":
-        # The CPU leg of this gate went tolerance-only in round 5: the
-        # environment's XLA CPU now fuses the vmapped program's float
-        # ops differently from the per-element run (~2e-5 drizzle on
-        # 81% of pixels; reproduced on the UNCHANGED round-4 tree, so
-        # it is upstream-compiler drift, not a repo change).  The
-        # bitwise batched==serial guarantee is carried where it is
-        # real — on the TPU, by tools/chip_matrix.py's __batch2 cells
-        # (0 mismatches, CHIPMATRIX_r05.json) and this same assert
-        # below when the suite runs on a chip.
+        # The CPU leg of this gate is tolerance-only: XLA CPU fuses
+        # the vmapped program's float ops differently from the
+        # per-element run (~2e-5 drizzle; upstream-compiler drift, not
+        # a repo change).  The bitwise batched==serial guarantee is
+        # checked on the card by chip_smoke.py phase 5.
         np.testing.assert_allclose(out, ref, atol=1e-4)
         assert np.abs(out - ref).mean() < 1e-5
     else:

@@ -1,6 +1,7 @@
 """Region-based sampler vs global sampler: exact-path equivalence.
 
-The region sampler is the TPU-fast path; it must match the
+The region sampler (per-patch regions + one-hot contractions) must
+match the
 reference-shaped global sampler for all positions the search can
 legally produce (within ``ps/2`` of the region's start position).
 """

@@ -1,7 +1,7 @@
 """Serving path: AOT compilation and jax.export round trips.
 
 The reference has no serving story (its deployment is re-running the
-CLI binary, main.cpp:102-209); these tests pin the TPU build's
+CLI binary, main.cpp:102-209); these tests pin the build's
 production path: fixed-shape AOT executables and serialized artifacts
 must reproduce the traced pipeline bit-for-bit.
 """
@@ -74,6 +74,17 @@ def test_export_roundtrip(tmp_path):
     assert exp.in_avals[0].shape == (44, 60)
     got = np.asarray(run(i1, i2))
     np.testing.assert_array_equal(got, want)
+
+
+def test_export_in_memory_and_bytes():
+    """export_flow returns the in-memory artifact; load_exported runs it
+    as is or from its serialized bytes, with the traced pipeline's flow."""
+    i1, i2 = synthetic_pair(44, 60)
+    want = _jit_flow(i1, i2)
+    exp = serving.export_flow(CFG, 44, 60)
+    for art in (exp, exp.serialize()):
+        run, _ = serving.load_exported(art)
+        np.testing.assert_array_equal(np.asarray(run(i1, i2)), want)
 
 
 def test_serving_cli_export_and_run(tmp_path, capsys):

@@ -52,8 +52,8 @@ def test_refinement_no_nans_on_flat_image():
 def test_warp_formulations_bit_identical():
     """take4 / take2 / slice1 warp gathers fetch the same four corner
     taps (replicate padding reproduces the edge clamp), so outputs must
-    be bit-identical — they exist purely as gather-row-count A/B
-    candidates (TPU gather cost scales with rows, not bytes)."""
+    be bit-identical — they exist purely as gather-shape A/B
+    candidates."""
     import dis_tpu.ops.variational as vmod
 
     rng = np.random.default_rng(11)
@@ -75,9 +75,8 @@ def test_warp_formulations_bit_identical():
 def test_warp1_scheme_runs_and_improves_subpixel_epe():
     """The one-plane gradient-averaging linearization (OpenCV
     VariationalRefinement structure, refinement_scheme='warp1') is a
-    valid refinement: improves sub-pixel EPE over no refinement.
-    (Measured SLOWER than planes6 on TPU — gather cost is per row, not
-    per byte — so it is an option, not the default; PERF_NOTES.md.)"""
+    valid refinement: improves sub-pixel EPE over no refinement.  It is
+    an option, not the default."""
     i1, i2 = synthetic_pair(48, 64, shift=(1.5, 0.5), seed=23)
     gt = np.zeros((48, 64, 2), np.float32)
     gt[..., 0] = 1.5

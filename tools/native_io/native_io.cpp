@@ -2,13 +2,13 @@
 //
 // The reference's runtime is native C++ (OpenCV imread/imwrite, .flo
 // codec, color-wheel rasterization); this library provides the same
-// host-side services for the TPU build without an OpenCV dependency:
+// host-side services for the JAX build without an OpenCV dependency:
 //   - PNG decode (zlib inflate + unfilter) to 8-bit gray with
 //     OpenCV-exact BT.601 fixed-point conversion (cf. main.cpp:115)
 //   - Middlebury .flo encode/decode (cf. IO_flow.cpp:10-98)
 //   - Middlebury color-wheel flow rasterization (cf. color_coding.cpp)
 // Exposed with a plain C ABI for ctypes; Python falls back to pure
-// NumPy/PIL implementations when the library is absent.
+// NumPy implementations when the library is absent.
 
 #include <cmath>
 #include <cstdint>
